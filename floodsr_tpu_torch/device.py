@@ -1,0 +1,38 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the GPU by default. When CUDA is absent they raise
+instead of carrying on quietly on the CPU; the CPU runs only when the caller
+asks for it (``device="cpu"``), as the CPU test suite does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: "str | torch.device | None" = "cuda") -> torch.device:
+    """The ``torch.device`` to run on; raises when CUDA is asked for but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: floodsr_tpu_torch runs on the GPU by "
+                "default; pass device='cpu' to run on the CPU explicitly"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def set_strict_f32() -> None:
+    """Full float32 convolutions and matmuls on the GPU (no TF32).
+
+    cuDNN runs float32 convolutions in TF32 by default, about three decimal
+    digits: the same silent precision loss the JAX package guards against on
+    the TPU by pinning the convolution precision. The port's only precision
+    policy is f32, so both switches are set off explicitly.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions.
+
+Each module holds one kernel's wrapper (input checks, dispatch, launch
+check, launch counter) beside its plain torch version: a CPU tensor goes to
+the plain version, a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+KERNEL_SOURCES = ("tile_stats", "hr_tail")
+
+
+def _modules():
+    from floodsr_tpu_torch.ops.kernels import hr_tail, tile_stats
+
+    return {"tile_stats": tile_stats, "hr_tail": hr_tail}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for mod in _modules().values():
+        mod.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """``{kernel name: launches since the last reset}``."""
+    return {name: int(mod.launches) for name, mod in _modules().items()}
