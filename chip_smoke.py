@@ -22,7 +22,22 @@ Phases (any failure raises and exits non-zero; none is caught):
    kernels' launch counts read from that run, and the worker's stage times
    (with ``--profile``, a third run traced by ``torch.profiler``: device time
    by kernel and the device's idle share, from the kernel and copy events);
-7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+7. relax_step (K3) against its plain torch version on the card, bit for bit
+   after 1 and after 64 relaxations, on a ``[4096, 4096]`` grid (costs in
+   [1, 5] with ``inf`` walls, a few hundred seeds, one on the edge, two
+   equidistant from the cells between them) and on ``[1000, 1537]``;
+8. ``mcp_fill`` on the card against the Dijkstra oracle on a 512² case;
+9. ``tohr`` for ``CostGrow`` and ``CostGrow_pcraster`` on a 4096² valley DEM
+   (side channels, a nodata hole) with a 256² WSE over the channel, default
+   parameters: K3's launch count read from the CostGrow run, the three
+   solves' relaxations, convergence checks and seconds (with ``--profile``,
+   a traced CostGrow run as well);
+10. both CostGrow workers at 64² and 512², with and without buildings and
+    once from a depth raster: the card's output equals ``device="cpu"``'s bit
+    for bit;
+11. ``tohr`` on ``ResUNet_16x_DEM`` with ``input_kind="wse"`` on a synth case
+    (WSE = DEM at LR + depth) against the depth-input run;
+12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -333,6 +348,7 @@ def scene_inputs(tmp: Path, seed: int, size: int) -> tuple[Path, Path]:
 KERNEL_NAMES = {
     "tile_stats": ("tile_stats_kernel",),
     "hr_tail": ("affine_relu_conv3x3_kernel", "conv1x1_kernel"),
+    "relax_step": ("relax_step_kernel",),
 }
 
 
@@ -451,6 +467,382 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
     return {"launches": counts, "e2e_s": e2e_s, "tiles": tiles, "timings": timings}
 
 
+# ---------------------------------------------------------------------------
+# CostGrow: relax_step (K3), the solves, and both workers
+# ---------------------------------------------------------------------------
+
+
+def relax_grid(rng, h: int, w: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(dist0, value0, cost)``: terrain-like costs in [1, 5] with ``inf`` walls.
+
+    A few hundred seeds, one on the grid's edge and one in its corner; two of
+    them lie 8 cells apart on a flat patch of cost 1, so the cells between
+    them are reached at exactly the same distance from both (a tie).
+    """
+    rough = np.cumsum(rng.normal(0.0, 0.05, (h, w)).astype(np.float32), axis=1)
+    cost = (3.0 + 2.0 * np.sin(rough + np.linspace(0.0, 9.0, h, dtype=np.float32)[:, None]))
+    cost = np.clip(cost, 1.0, 5.0).astype(np.float32)
+    for k in range(6):  # walls with gaps
+        r = (k + 1) * h // 7
+        cost[r, : w - (k + 1) * w // 9] = np.inf
+        c = (k + 1) * w // 7
+        cost[(k + 1) * h // 11 :, c] = np.inf
+    cost[16:32, 16:48] = 1.0
+    dist = np.full((h, w), np.inf, np.float32)
+    value = np.full((h, w), np.nan, np.float32)
+    n = 300
+    cells = list(zip(rng.integers(0, h, n).tolist(), rng.integers(0, w, n).tolist()))
+    cells += [(0, 0), (h - 1, w // 2), (24, 24), (24, 32)]
+    for k, (r, c) in enumerate(cells):
+        if np.isfinite(cost[r, c]):
+            dist[r, c], value[r, c] = 0.0, 100.0 + 0.01 * k
+    return dist, value, cost
+
+
+def same_state(torch, got, want) -> float:
+    """Raise unless ``(dist, value)`` pairs are equal bit for bit (NaN payloads
+    aside); returns the largest |difference| over the finite cells (0.0)."""
+    (gd, gv), (wd, wv) = got, want
+    if not torch.equal(gd, wd):
+        bad = int((gd != wd).sum())
+        raise AssertionError(f"relax_step kernel != plain version: {bad} distances differ")
+    if not torch.equal(torch.isnan(gv), torch.isnan(wv)):
+        raise AssertionError("relax_step kernel != plain version: NaN patterns differ")
+    if not torch.equal(torch.nan_to_num(gv, nan=0.0), torch.nan_to_num(wv, nan=0.0)):
+        raise AssertionError("relax_step kernel != plain version: values differ")
+    fin = torch.isfinite(wd)
+    return float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def phase_relax_step(torch, rng) -> dict:
+    from floodsr_tpu_torch.ops.kernels import relax_step as rs
+
+    err = 0.0
+    for h, w in ((SCENE_SIZE, SCENE_SIZE), (1000, 1537)):
+        dist, value, cost = (torch.from_numpy(a).cuda() for a in relax_grid(rng, h, w))
+        got, want = (dist, value), (dist, value)
+        for step in range(1, 65):
+            got = rs.relax_step_cuda(*got, cost)
+            want = rs.relax_step_reference(*want, cost)
+            if step in (1, 64):
+                torch.cuda.synchronize()
+                err = max(err, same_state(torch, got, want))
+        reached = int(torch.isfinite(got[0]).sum())
+        tie = got[0][24, 28].item()
+        log(
+            f"[relax_step] [{h},{w}] bitwise equal to plain after 1 and 64 relaxations; "
+            f"{reached} cells reached, tie cell (24,28) dist {tie} value {got[1][24, 28].item()}"
+        )
+        if (h, w) != (SCENE_SIZE, SCENE_SIZE):
+            continue
+        # Timed at the scene's size on the 64-step state; each call relaxes
+        # the last one's result, as mcp_fill does.
+        state = {"cur": got}
+
+        def step_kernel():
+            state["cur"] = rs.relax_step_cuda(*state["cur"], cost)
+
+        ms = time_ms(torch, step_kernel, reps=50)
+        plain_ms = time_ms(torch, lambda: rs.relax_step_reference(*got, cost), reps=3, warmup=1)
+        # 3 arrays read, 2 written; per cell 8 candidates of 2 adds, 1
+        # multiply and 1 compare.
+        bound_ms, bound_by = bound(nbytes=5 * h * w * 4, nops=8 * 4 * h * w)
+        log(
+            f"[relax_step] [{h},{w}] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {5 * h * w * 4 / (ms * 1e-3) / 1e9:.1f} GB/s "
+            f"of the bound's bytes; no library call computes this"
+        )
+    return {
+        "name": "relax_step",
+        "route": "cuda",
+        "source": "floodsr_tpu_torch/csrc/relax_step.cu",
+        "replaces": "floodsr_tpu/ops/pallas/costgrow_stencil.py:141",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": None,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "launches": None,
+    }
+
+
+def phase_mcp_fill_oracle(torch, rng) -> None:
+    """``mcp_fill`` on the card against the sequential Dijkstra oracle, 512²."""
+    from floodsr_tpu_torch.ops import costgrow as cg
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    h = w = 512
+    cost = rng.uniform(1.0, 5.0, (h, w)).astype(np.float32)
+    domain = rng.random((h, w)) > 0.08
+    domain[200:204, 40:480] = False  # a wall
+    seeds = rng.random((h, w)) > 0.9995
+    seeds[0, 0] = True
+    seed_values = np.where(seeds, rng.uniform(100.0, 120.0, (h, w)), np.nan).astype(np.float32)
+    stats = {}
+    reset_launch_counts()
+    filled, dist = cg.mcp_fill(
+        *(torch.from_numpy(a).cuda() for a in (seed_values, seeds, cost, domain)), stats=stats
+    )
+    launches = launch_counts()["relax_step"]
+    filled, dist = filled.cpu().numpy(), dist.cpu().numpy()
+    t0 = time.perf_counter()
+    want_fill, want_dist = cg.mcp_fill_numpy(seed_values, seeds, cost, domain)
+    oracle_s = time.perf_counter() - t0
+    finite = np.isfinite(want_dist)
+    if not np.array_equal(np.isfinite(dist), finite):
+        raise AssertionError("mcp_fill: reached cells differ from the Dijkstra oracle's")
+    # f32 sums along a path against the oracle's float64.
+    np.testing.assert_allclose(dist[finite], want_dist[finite], rtol=1e-4)
+    if not np.array_equal(np.isnan(filled), np.isnan(want_fill)):
+        raise AssertionError("mcp_fill: filled cells differ from the Dijkstra oracle's")
+    ok = np.isfinite(want_fill)
+    differs = float((filled[ok] != want_fill[ok]).mean())
+    log(
+        f"[mcp_fill] 512x512, {int(seeds.sum())} seeds: {stats['relaxations']} relaxations "
+        f"({launches} launches), {stats['checks']} checks, {stats['seconds']:.3f} s on the card; "
+        f"Dijkstra oracle {oracle_s:.1f} s on the host; distances within rtol 1e-4, "
+        f"filled values differ on {differs:.5%} of cells (ties)"
+    )
+    if launches != stats["relaxations"] or launches <= 0:
+        raise AssertionError(f"mcp_fill: {launches} launches for {stats['relaxations']} relaxations")
+    if differs > 0.05:
+        raise AssertionError(f"mcp_fill: {differs:.3%} of filled values differ from the oracle")
+
+
+def valley_scene(tmp: Path, seed: int, size: int, scale: int = 16) -> dict:
+    """A ``size``² valley DEM and a ``size/scale``² WSE over its channel.
+
+    The valley runs west to east and falls 3 m along the way; its sides rise
+    1 cm per pixel, with small roughness. Side channels 2 m deep run up the
+    northern slope. A block of nodata sits in the channel. The WSE covers a
+    band over the channel, 2.5 m above the valley floor.
+    """
+    from floodsr_tpu_torch.io import from_origin, write_raster
+
+    rng = np.random.default_rng(seed)
+    lr = size // scale
+    hr_res, lr_res = 2.0, 2.0 * scale
+    x0, ytop = 500000.0, 4000000.0 + size * hr_res
+    yy = np.abs(np.arange(size, dtype=np.float32) - size / 2)[:, None]
+    fall = np.linspace(3.0, 0.0, size, dtype=np.float32)[None, :]
+    dem = (100.0 + yy * 0.01 * (4096 / size) + fall).astype(np.float32)
+    dem += rng.normal(0.0, 0.02, (size, size)).astype(np.float32)
+    for k in range(1, 6):  # side channels up the northern slope
+        c = k * size // 6
+        dem[: size // 2, c : c + max(2, size // 512)] -= 2.0
+    hole = np.s_[
+        size // 2 - size // 40 : size // 2 + size // 40,
+        3 * size // 4 : 3 * size // 4 + size // 20,
+    ]
+    nodata = -9999.0
+    dem_out = dem.copy()
+    dem_out[hole] = nodata
+    wse = np.full((lr, lr), nodata, np.float32)
+    band_rows = 2 * max(1, lr // 32)
+    wse[lr // 2 - band_rows // 2 : lr // 2 + band_rows // 2, :] = 102.5 + np.linspace(3.0, 0.0, lr, dtype=np.float32)[None, :]
+    depth = np.where(wse == nodata, nodata, 1.25).astype(np.float32)
+
+    def profile(shape, res):
+        return {
+            "height": shape[0], "width": shape[1], "count": 1,
+            "dtype": "float32", "crs": "EPSG:32633", "nodata": nodata,
+            "transform": from_origin(x0, ytop, res, res), "compress": "LZW",
+        }
+
+    fps = {k: tmp / f"valley{size}_{k}.tif" for k in ("dem", "wse", "depth")}
+    write_raster(fps["dem"], dem_out, profile(dem.shape, hr_res))
+    write_raster(fps["wse"], wse, profile(wse.shape, lr_res))
+    write_raster(fps["depth"], depth, profile(depth.shape, lr_res))
+    # A building across the channel, a quarter of the way along it.
+    bx0 = x0 + (size // 4) * hr_res
+    by0 = ytop - (size // 2 + size // 16) * hr_res
+    bx1, by1 = bx0 + max(3, size // 64) * hr_res, by0 + (size // 8) * hr_res
+    fps["buildings"] = tmp / f"valley{size}_buildings.geojson"
+    fps["buildings"].write_text(json.dumps({
+        "type": "Polygon",
+        "crs": {"type": "name", "properties": {"name": "EPSG:32633"}},
+        "coordinates": [[[bx0, by0], [bx1, by0], [bx1, by1], [bx0, by1], [bx0, by0]]],
+    }))
+    fps.update(dem_arr=dem, hole=hole, scale=scale, band_rows=band_rows * scale)
+    return fps
+
+
+COSTGROW_VERSIONS = ("CostGrow", "CostGrow_pcraster")
+
+
+def costgrow_params(tmp: Path) -> dict:
+    """Each version's default parameter artifact, materialized offline."""
+    from floodsr_tpu_torch.model_registry import fetch_model
+
+    return {v: fetch_model(v, cache_dir=tmp / "models") for v in COSTGROW_VERSIONS}
+
+
+def read_wse(fp) -> np.ndarray:
+    from floodsr_tpu_torch.io import read_raster
+
+    arr, nodata, _ = read_raster(fp)
+    return np.where(np.isclose(arr, nodata), np.nan, arr).astype(np.float32)
+
+
+def phase_costgrow_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict:
+    """``tohr`` for both CostGrow versions at full size, default parameters."""
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from floodsr_tpu_torch.tohr import tohr
+
+    stage_log = _StageLog()
+    logger = logging.getLogger("chip_smoke.costgrow")
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False
+    logger.addHandler(stage_log)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-costgrow-") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        scene = valley_scene(tmp, seed, size)
+        params = costgrow_params(tmp)
+        log(f"[costgrow] {size}x{size} valley written in {time.perf_counter() - t0:.1f} s")
+        for version in COSTGROW_VERSIONS:
+            out_fp = tmp / f"{version}.tif"
+            kw = dict(
+                model_version=version, model_fp=params[version], depth_lr_fp=scene["wse"],
+                dem_hr_fp=scene["dem"], output_fp=out_fp, device="cuda", logger=logger,
+            )
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stage_log.stages.clear()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            diag = tohr(**kw)
+            torch.cuda.synchronize()
+            e2e_s = time.perf_counter() - t0
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            pre, solves = diag["preprocess"], diag["solves"]
+            out = read_wse(out_fp)
+            wet = np.isfinite(out)
+            solve_s = sum(s["seconds"] for s in solves.values())
+            relaxations = sum(s["relaxations"] for s in solves.values())
+            log(
+                f"[costgrow] {version} {size}x{size} from {size // scene['scale']}² WSE: "
+                f"{e2e_s:.3f} s end to end, {solve_s:.3f} s in {len(solves)} solve(s), "
+                f"{relaxations} relaxations ({counts['relax_step']} K3 launches), "
+                f"{sum(s['checks'] for s in solves.values())} convergence checks, "
+                f"wet {int(wet.sum())} cells, peak allocated {peak / 2**20:.1f} MiB"
+            )
+            log(f"[costgrow] {version} solves {json.dumps(solves)}")
+            log(f"[costgrow] {version} worker stages (s) {json.dumps(stage_log.stages)}")
+            assert out.shape == (size, size), out.shape
+            assert pre["downscale"] == scene["scale"], pre["downscale"]
+            assert pre["wet_pixel_count"] == int(wet.sum()) > 0
+            assert (out[wet] > scene["dem_arr"][wet]).all(), "a wet cell's WSE is not above the DEM"
+            assert not wet[scene["hole"]].any(), "a wet cell in the DEM's nodata hole"
+            # The band under the WSE is wet, and growth went beyond it.
+            assert wet.sum() > scene["band_rows"] * size
+            if counts["relax_step"] != relaxations or relaxations <= 0:
+                raise AssertionError(
+                    f"{version}: {counts['relax_step']} K3 launches for {relaxations} relaxations"
+                )
+            results[version] = {
+                "launches": counts, "e2e_s": e2e_s, "solve_s": solve_s, "solves": solves,
+            }
+            if with_profile and version == "CostGrow":
+                prof = device_profile(torch, lambda: tohr(**kw))
+                prof["device_idle_share_of_timed_run"] = 1.0 - prof["device_busy_s"] / e2e_s
+                # K3's device time against the wall time of the (untraced) solves.
+                prof["relax_step_device_s_over_solve_s"] = (
+                    prof["kernel_device_ms"]["relax_step"] / 1e3 / solve_s
+                )
+                log(f"[profile] costgrow {json.dumps(prof)}")
+    return results
+
+
+def phase_costgrow_small(torch, seed: int) -> None:
+    """Both workers at 64² and 512²: the card's output equals the CPU's bit for bit."""
+    from floodsr_tpu_torch.tohr import tohr
+
+    runs = 0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-costgrow-small-") as tmp:
+        tmp = Path(tmp)
+        params = costgrow_params(tmp)
+        for size, scale in ((64, 8), (512, 16)):
+            scene = valley_scene(tmp, seed, size, scale)
+            variants = [("wse", {}), ("wse", {"buildings_fp": scene["buildings"]})]
+            if size == 64:
+                variants.append(("depth", {"input_kind": "depth"}))
+            for version in COSTGROW_VERSIONS:
+                for lr, kw in variants:
+                    outs = {}
+                    for device in ("cuda", "cpu"):
+                        out_fp = tmp / f"{version}_{size}_{device}.tif"
+                        diag = tohr(
+                            model_version=version, model_fp=params[version],
+                            depth_lr_fp=scene[lr], dem_hr_fp=scene["dem"],
+                            output_fp=out_fp, device=device, **kw,
+                        )
+                        outs[device] = read_wse(out_fp)
+                    wet = np.isfinite(outs["cpu"])
+                    if not np.array_equal(outs["cuda"], outs["cpu"], equal_nan=True):
+                        bad = int((np.nan_to_num(outs["cuda"]) != np.nan_to_num(outs["cpu"])).sum())
+                        raise AssertionError(
+                            f"{version} {size}² {lr} {sorted(kw)}: card != cpu on {bad} cells"
+                        )
+                    assert wet.any() and not wet[scene["hole"]].any()
+                    if "buildings_fp" in kw:
+                        assert diag["preprocess"]["building_blocked_cells"] > 0
+                    runs += 1
+                    log(
+                        f"[costgrow-small] {version} {size}x{size} lr={lr} {sorted(kw)}: "
+                        f"card == cpu bit for bit, {int(wet.sum())} wet cells"
+                    )
+    assert runs == 10, runs
+
+
+def phase_resunet_wse() -> None:
+    """``tohr(input_kind="wse")`` on a synth case against its depth-input run."""
+    from floodsr_tpu_torch.io import read_raster, write_raster
+    from floodsr_tpu_torch.ops.resample import reproject_bilinear
+    from floodsr_tpu_torch.tohr import tohr
+
+    case_dir = DATA / "synth_single_tile"
+    spec = json.loads((case_dir / "case_spec.json").read_text())
+    model_fp = DATA / spec.get("model_artifact", "_artifacts/model_infer_test.fsrz")
+    depth_fp, dem_fp = (case_dir / spec["inputs"][k] for k in ("lowres_fp", "dem_fp"))
+    depth, depth_nodata, depth_prof = read_raster(depth_fp)
+    dem, dem_nodata, dem_prof = read_raster(dem_fp)
+    assert dem_nodata is None or not np.isclose(dem, dem_nodata).any()
+    # WSE = DEM at LR + depth on the wet cells, nodata on the dry ones.
+    dem_lr = reproject_bilinear(
+        dem.astype(np.float32), dem_prof["transform"], depth.shape, depth_prof["transform"]
+    )
+    nodata = -9999.0
+    wet = depth > 0 if depth_nodata is None else (depth > 0) & ~np.isclose(depth, depth_nodata)
+    wse = np.where(wet, dem_lr + depth, nodata).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wse-") as tmp:
+        wse_fp = Path(tmp) / "wse.tif"
+        prof = dict(depth_prof)
+        prof.update(dtype="float32", nodata=nodata, compress="LZW")
+        write_raster(wse_fp, wse, prof)
+        outs = {}
+        for kind, lr_fp in (("depth", depth_fp), ("wse", wse_fp)):
+            out_fp = Path(tmp) / f"pred_{kind}.tif"
+            diag = tohr(
+                model_version="ResUNet_16x_DEM", model_fp=model_fp, depth_lr_fp=lr_fp,
+                dem_hr_fp=dem_fp, output_fp=out_fp, input_kind=kind, device="cuda",
+            )
+            assert diag["preprocess"]["input_kind"] == kind
+            outs[kind], _, _ = read_raster(out_fp)
+    err = float(np.abs(outs["wse"] - outs["depth"]).max())
+    log(
+        f"[wse] ResUNet_16x_DEM synth_single_tile: max |wse-input - depth-input| {err:.3e} m "
+        f"over {outs['depth'].shape}, max depth {float(outs['depth'].max()):.3f} m"
+    )
+    # (DEM + d) - DEM rounds d in f32 at elevation scale; the tolerance of
+    # the JAX package's own WSE-vs-depth test.
+    if not err <= 1e-3:
+        raise AssertionError(f"WSE input differs from depth input by {err} m")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -477,6 +869,13 @@ def main(argv=None) -> int:
     scene = phase_scene(torch, args.seed, SCENE_SIZE, args.profile)
     for k in kernels:
         k["launches"] = scene["launches"][k["name"]]
+    k3 = phase_relax_step(torch, rng)
+    phase_mcp_fill_oracle(torch, rng)
+    costgrow = phase_costgrow_scene(torch, args.seed, SCENE_SIZE, args.profile)
+    k3["launches"] = costgrow["CostGrow"]["launches"]["relax_step"]
+    kernels.append(k3)
+    phase_costgrow_small(torch, args.seed)
+    phase_resunet_wse()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])

@@ -11,8 +11,7 @@ The whole scene runs on the device through :meth:`EngineTorch.run_scene`
 (one upload of the DEM, uint16-encoded when large; the two-phase executor;
 one download). The worker runs on the GPU unless constructed with
 ``device="cpu"``, and raises when CUDA is absent. Not ported yet: the DEM
-device cache, prefetch, ``run_many``/``warmup``, WSE input and building
-footprints.
+device cache, prefetch and ``run_many``/``warmup``.
 """
 
 from __future__ import annotations
@@ -242,8 +241,12 @@ class ModelWorker(Model):
         ``floodsr/io/rasterio_io.py:4-14``). ``zstd``/``none`` trade file
         size for host encode time.
 
-        ``input_kind="wse"`` (water-surface elevation input) and
-        ``buildings_fp`` (building footprints) are not ported yet and raise.
+        ``input_kind="wse"`` ingests a water-surface-elevation raster and
+        converts it to depth against the DEM on the LR grid
+        (:func:`floodsr_tpu_torch.preprocessing.wse_to_depth_lr` — the
+        reference's planned WSE feature, reference ``PLAN.md``). ``buildings_fp``
+        (GeoJSON footprints) zeroes super-resolved depths inside buildings
+        (the reference's planned building-blocking feature, its ADR-0016).
         """
         start = time.perf_counter()
         log = self.log
@@ -262,10 +265,6 @@ class ModelWorker(Model):
         assert input_kind in {"depth", "wse"}, (
             f"unsupported input_kind={input_kind}"
         )
-        if input_kind == "wse":
-            raise NotImplementedError("input_kind='wse' is not ported yet")
-        if buildings_fp is not None:
-            raise NotImplementedError("buildings_fp is not ported yet")
         output_compress = (output_compress or "lzw").strip().lower()
         assert output_compress in {"lzw", "zstd", "deflate", "packbits", "none"}, (
             f"unsupported output_compress={output_compress}"
@@ -416,8 +415,35 @@ class ModelWorker(Model):
             )
             output_profile.pop("predictor", None)
 
+            # Building blocking (reference's planned feature, its ADR-0016):
+            # zero depths inside footprints as the rows stream to disk, and
+            # apply the same mask to the in-memory prediction below. Loaded
+            # BEFORE the output stream opens: a bad buildings file must
+            # fail cleanly, not truncate/corrupt the requested output path.
+            building_mask = None
+            blocked_wet = {"cells": 0}
+            if buildings_fp is not None:
+                from floodsr_tpu_torch.features import building_mask_for_grid
+
+                building_mask = building_mask_for_grid(
+                    buildings_fp,
+                    output_profile["transform"],
+                    tuple(prepped["dem_raw_shape"]),
+                    crs=str(output_profile["crs"]),
+                    logger_=log,
+                )
+
             stream_writer = open_raster_stream(out_path, output_profile)
             row_sink = stream_writer.write_rows
+            if building_mask is not None:
+                row_cursor = {"row": 0}
+
+                def row_sink(band, _w=stream_writer.write_rows):
+                    r0 = row_cursor["row"]
+                    m = building_mask[r0 : r0 + band.shape[0]]
+                    blocked_wet["cells"] += int(((band > 0) & m).sum())
+                    row_cursor["row"] = r0 + band.shape[0]
+                    _w(np.where(m, 0.0, band).astype(band.dtype, copy=False))
 
             t_tiled0 = time.perf_counter()
             try:
@@ -445,6 +471,13 @@ class ModelWorker(Model):
                     f"prediction shape {prediction_out_m.shape} must match "
                     f"raw DEM shape {prepped['dem_raw_shape']}"
                 )
+                if building_mask is not None:
+                    # Keep the in-memory prediction identical to the streamed
+                    # (masked) file contents.
+                    prediction_out_m = np.where(
+                        building_mask, 0.0, prediction_out_m
+                    ).astype(np.float32)
+
                 # The pipeline already clipped to [0, max_depth] and applied the
                 # low-depth mask; a cheap range guard replaces host re-work.
                 assert prediction_out_m.dtype == np.float32
@@ -520,7 +553,9 @@ class ModelWorker(Model):
                 "dem_ref_stats": preprocess_cfg["dem_ref_stats"],
                 "window_method": window_method,
                 "input_kind": input_kind,
-                "building_blocked_wet_cells": None,
+                "building_blocked_wet_cells": (
+                    blocked_wet["cells"] if building_mask is not None else None
+                ),
                 "tile_overlap_lr": overlap_lr,
                 "tile_size_lr": model_lr_tile,
                 "tile_size_hr": model_lr_tile * model_scale,

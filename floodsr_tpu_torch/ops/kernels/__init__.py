@@ -7,13 +7,13 @@ the plain version, a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-KERNEL_SOURCES = ("tile_stats", "hr_tail")
+KERNEL_SOURCES = ("tile_stats", "hr_tail", "relax_step")
 
 
 def _modules():
-    from floodsr_tpu_torch.ops.kernels import hr_tail, tile_stats
+    from floodsr_tpu_torch.ops.kernels import hr_tail, relax_step, tile_stats
 
-    return {"tile_stats": tile_stats, "hr_tail": hr_tail}
+    return {"tile_stats": tile_stats, "hr_tail": hr_tail, "relax_step": relax_step}
 
 
 def reset_launch_counts() -> None:

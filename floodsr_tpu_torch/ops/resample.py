@@ -403,6 +403,13 @@ def reproject_bilinear_auto(
     in the JAX package. A large rectilinear warp with no live nodata sentinel
     runs as two f32 matmuls with :func:`separable_resample_matrices` on the
     device; any other large warp as the device 4-tap gather.
+
+    A sentinel is live when a source cell matches ``src_nodata`` or is not
+    finite. The JAX package decides by the sentinel's value alone (any
+    nonzero ``src_nodata`` takes the matmuls, which cannot skip a cell) and
+    so blends a live nonzero sentinel into its neighbours on a large grid;
+    here the data decide, and a live sentinel takes the nodata-aware gather,
+    as the host path does at every size.
     """
     if int(dst_shape[0]) * int(dst_shape[1]) < _DEVICE_WARP_THRESHOLD:
         return reproject_bilinear(
@@ -410,10 +417,16 @@ def reproject_bilinear_auto(
         )
     device = torch.device(device)
     src = torch.from_numpy(np.ascontiguousarray(source, np.float32)).to(device)
+    live_nodata = src_nodata is not None and bool(
+        (
+            ~torch.isfinite(src)
+            | torch.isclose(src, torch.tensor(float(src_nodata), device=device))
+        ).any()
+    )
     if (
         src_transform.is_rectilinear()
         and dst_transform.is_rectilinear()
-        and (src_nodata is None or src_nodata != 0.0)
+        and not live_nodata
     ):
         ry, rx = separable_resample_matrices(
             tuple(source.shape), src_transform, dst_shape, dst_transform

@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``preprocessing.py``: the host code is copied and
 the device branches (a DEM kept on the device and warped there) run in
-torch. WSE ingestion (``input_kind="wse"``) is not ported yet and raises.
+torch.
 
 Behavioral parity with the reference module (reference:
 ``floodsr/preprocessing.py``): model-config resolution from
@@ -190,6 +190,70 @@ def _replace_nodata_any(arr, nodata):
     return torch.where(_isclose_scalar(arr, nodata), zero, arr)
 
 
+def wse_to_depth_lr(
+    wse_raw: np.ndarray,
+    wse_nodata: float | None,
+    lr_transform,
+    dem_crop,
+    dem_crop_valid,
+    dem_crop_transform,
+    logger=None,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """Convert a water-surface-elevation raster to LR depth: ``max(WSE−DEM, 0)``.
+
+    Implements the reference's planned-but-unbuilt WSE ingestion feature
+    (reference: ``PLAN.md`` "preprocessing WSE feature" — "allow ingestion of
+    water surface rasters (with a flag), and convert these"). The DEM is
+    sampled onto the LR grid with the same mask-renormalized bilinear warp
+    the aligner uses for the HR model grid; cells where the WSE is nodata,
+    the DEM has no valid contribution, or the WSE sits at/below terrain
+    come out dry (0 m).
+
+    ``dem_crop`` is the nodata-zeroed clipped DEM (numpy array or device
+    tensor) with ``dem_crop_valid`` its float validity mask (or None when
+    fully valid). A tensor is warped on its own device; ``device`` is where a
+    large host array would be warped.
+    """
+    log = logger or logging.getLogger(__name__)
+    lr_shape = tuple(int(v) for v in wse_raw.shape)
+
+    is_device = isinstance(dem_crop, torch.Tensor)
+    rectilinear = (
+        dem_crop_transform.is_rectilinear() and lr_transform.is_rectilinear()
+    )
+    if is_device and rectilinear:
+        def warp(src):
+            return _to_numpy(
+                warp_separable_device(src, dem_crop_transform, lr_shape, lr_transform)
+            )
+    else:
+        def warp(src):
+            return reproject_bilinear_auto(
+                np.asarray(_to_numpy(src), np.float32),
+                dem_crop_transform, lr_shape, lr_transform, device=device,
+            )
+    dem_lr = warp(dem_crop)
+    wmask = warp(dem_crop_valid) if dem_crop_valid is not None else None
+
+    if wmask is not None:
+        dem_valid = wmask > 1e-6
+        dem_lr = np.where(dem_valid, dem_lr / np.maximum(wmask, 1e-6), 0.0)
+    else:
+        dem_valid = np.ones(lr_shape, dtype=bool)
+
+    wse = np.asarray(wse_raw, np.float32)
+    wse_valid_f = _valid_mask_any(wse, wse_nodata)
+    valid = dem_valid if wse_valid_f is None else (dem_valid & (wse_valid_f > 0.5))
+    depth = np.where(valid, np.clip(wse - dem_lr, 0.0, None), 0.0).astype(np.float32)
+    wet = int(np.count_nonzero(depth > 0))
+    log.info(
+        f"WSE→depth conversion: {wet}/{depth.size} wet LR cells, "
+        f"max depth {float(depth.max()):.3f} m"
+    )
+    return depth
+
+
 def _renormalize(dem_model: torch.Tensor, wmask: torch.Tensor) -> torch.Tensor:
     """Divide the warped DEM by the warped validity mask (0 where no data)."""
     ok = wmask > 1e-6
@@ -223,10 +287,6 @@ def _align_depth_and_dem_inputs(
     assert input_kind in {"depth", "wse"}, (
         f"input_kind must be 'depth' or 'wse'; got {input_kind!r}"
     )
-    if input_kind == "wse":
-        raise NotImplementedError(
-            "WSE input (input_kind='wse') is not ported to floodsr_tpu_torch yet"
-        )
     depth_path = Path(depth_lr_fp).expanduser().resolve()
     dem_path = Path(dem_hr_fp).expanduser().resolve()
     assert depth_path.exists(), f"low-res depth raster does not exist: {depth_path}"
@@ -301,6 +361,20 @@ def _align_depth_and_dem_inputs(
     dem_crop_valid = _valid_mask_any(dem_crop, dem_nodata)
     dem_crop = _replace_nodata_any(dem_crop, dem_nodata)
     dem_crop_transform = window_transform(row0, col0, dem_t)
+
+    if input_kind == "wse":
+        # The raw raster carries water-surface elevations, not depths:
+        # convert on the LR grid before any depth validation/scaling.
+        depth_lr = wse_to_depth_lr(
+            depth_raw,
+            depth_nodata,
+            depth_t,
+            dem_crop,
+            dem_crop_valid,
+            dem_crop_transform,
+            logger=log,
+            device=device,
+        )
 
     if isinstance(dem_crop, np.ndarray) and not np.isfinite(dem_crop).all():
         # Device-resident DEMs were finite-checked by the caller pre-upload.
@@ -418,8 +492,8 @@ def write_prepared_rasters(
     short-lived temp files entirely. ``device_dem=True`` keeps the warped DEM
     on the device (``device``, or the preread DEM tensor's) for direct
     consumption by the scene executor.
-    ``input_kind="wse"`` (water-surface elevation input) is not ported yet
-    and raises.
+    ``input_kind="wse"`` treats the LR raster as water-surface elevation and
+    converts it to depth against the DEM (:func:`wse_to_depth_lr`).
     """
     log = logger or logging.getLogger(__name__)
     out_dir = Path(out_dir).expanduser()

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from floodsr_tpu_torch.device import set_strict_f32
+from floodsr_tpu_torch.ops import costgrow as cg
 from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+from floodsr_tpu_torch.ops.kernels import relax_step as rs
 from floodsr_tpu_torch.ops.kernels import tile_stats as ts
 
 pytestmark = pytest.mark.cuda
@@ -130,3 +132,90 @@ def test_hr_tail_kernel_rejects_what_it_does_not_take(cuda_device):
         ht.hr_tail(sr, dem, *weights[:2], weights[2][:, :, :-1], *weights[3:])
     with pytest.raises(ValueError, match="must share"):
         ht.hr_tail(sr, dem[:, :4].contiguous(), *weights)
+
+
+def _relax_grid(seed, h, w, device):
+    """Terrain-like costs in [1, 5] with ``inf`` walls and one NaN; seeds on the
+    grid's corner and edge, and two equidistant from the cells between them."""
+    rng = np.random.default_rng(seed)
+    cost = rng.uniform(1.0, 5.0, (h, w)).astype(np.float32)
+    cost[h // 3, : w // 2] = np.inf
+    cost[:, 2 * w // 3][rng.random(h) > 0.3] = np.inf
+    cost[h // 2, w // 2] = np.nan
+    cost[1:4, 1:8] = 1.0  # a flat patch: exact ties between its two seeds
+    dist = np.full((h, w), np.inf, np.float32)
+    value = np.full((h, w), np.nan, np.float32)
+    cells = [(0, 0), (h - 1, w // 2), (2, min(2, w - 1)), (2, min(6, w - 1))] + [
+        (int(r), int(c)) for r, c in zip(rng.integers(0, h, 12), rng.integers(0, w, 12))
+    ]
+    for k, (r, c) in enumerate(cells):
+        dist[r, c], value[r, c] = 0.0, 100.0 + k
+    return tuple(torch.from_numpy(a).to(device) for a in (dist, value, cost))
+
+
+def _assert_same_state(got, want):
+    (gd, gv), (wd, wv) = got, want
+    assert torch.equal(gd, wd)  # distances bit for bit, inf included
+    assert torch.equal(torch.isnan(gv), torch.isnan(wv))
+    assert torch.equal(torch.nan_to_num(gv, nan=0.0), torch.nan_to_num(wv, nan=0.0))
+
+
+# 64x96 is whole 32x8 thread tiles; 37x45 and 5x3 have ragged edges.
+@pytest.mark.parametrize("h,w", [(64, 96), (37, 45), (5, 3)])
+def test_relax_step_kernel_equals_plain_version(cuda_device, h, w):
+    dist, value, cost = _relax_grid(2, h, w, cuda_device)
+    rs.launches = 0
+    got, want = (dist, value), (dist, value)
+    for step in range(1, 25):
+        got = rs.relax_step(*got, cost)
+        want = rs.relax_step_reference(*want, cost)
+        torch.cuda.synchronize()
+        # No FMA contraction in the kernel: bit for bit after every step.
+        _assert_same_state(got, want)
+    assert rs.launches == 24
+    assert torch.isfinite(got[0]).sum() > min(16, h * w // 2) and not torch.isnan(got[0]).any()
+
+
+def test_relax_step_kernel_leaves_its_inputs_alone(cuda_device):
+    dist, value, cost = _relax_grid(3, 40, 50, cuda_device)
+    keep = dist.clone(), value.clone()
+    got = rs.relax_step(dist, value, cost)
+    torch.cuda.synchronize()
+    # Jacobi: new tensors are written, the inputs are not.
+    assert got[0].data_ptr() != dist.data_ptr() and got[1].data_ptr() != value.data_ptr()
+    _assert_same_state((dist, value), keep)
+    _assert_same_state(got, rs.relax_step_reference(dist, value, cost))
+
+
+def test_relax_step_kernel_rejects_what_it_does_not_take(cuda_device):
+    dist, value, cost = _relax_grid(4, 16, 16, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        rs.relax_step(dist, value, cost.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.relax_step(dist, value, cost.t())
+    with pytest.raises(ValueError, match="shape"):
+        rs.relax_step(dist, value, cost[:8].contiguous())
+    with pytest.raises(ValueError, match="is on"):
+        rs.relax_step(dist, value, cost.cpu())
+
+
+def test_mcp_fill_on_the_card_equals_the_cpu_and_the_dijkstra_oracle(cuda_device):
+    rng = np.random.default_rng(6)
+    h, w = 96, 80
+    cost = rng.uniform(1.0, 5.0, (h, w)).astype(np.float32)
+    domain = rng.random((h, w)) > 0.1
+    seeds = rng.random((h, w)) > 0.995
+    seed_values = np.where(seeds, rng.uniform(100, 110, (h, w)), np.nan).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (seed_values, seeds, cost, domain)]
+    rs.launches = 0
+    stats = {}
+    fill_gpu, dist_gpu = cg.mcp_fill(*(a.to(cuda_device) for a in args), stats=stats)
+    fill_cpu, dist_cpu = cg.mcp_fill(*args)
+    assert rs.launches == stats["relaxations"] > 0
+    assert torch.equal(dist_gpu.cpu(), dist_cpu)
+    np.testing.assert_array_equal(fill_gpu.cpu().numpy(), fill_cpu.numpy())
+    want_fill, want_dist = cg.mcp_fill_numpy(seed_values, seeds, cost, domain)
+    finite = np.isfinite(want_dist)
+    np.testing.assert_array_equal(np.isfinite(dist_cpu.numpy()), finite)
+    # f32 sums along a path against the oracle's float64.
+    np.testing.assert_allclose(dist_cpu.numpy()[finite], want_dist[finite], rtol=1e-4)

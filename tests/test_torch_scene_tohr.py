@@ -152,6 +152,15 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "floodsr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    covered = {str(path.relative_to(ROOT)) for path in files}
+    assert {
+        "floodsr_tpu_torch/ops/costgrow.py",
+        "floodsr_tpu_torch/ops/kernels/relax_step.py",
+        "floodsr_tpu_torch/models/CostGrow.py",
+        "floodsr_tpu_torch/models/CostGrow_pcraster.py",
+        "floodsr_tpu_torch/features/footprints.py",
+        "floodsr_tpu_torch/dem_sources/geodesy.py",
+    } <= covered
     banned = ("jax", "floodsr_tpu")
     offenders = [
         f"{path.relative_to(ROOT)}: {name}"
