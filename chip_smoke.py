@@ -12,16 +12,22 @@ Phases (any failure raises and exits non-zero; none is caught):
 2. build — ``nvcc`` builds every kernel from ``floodsr_tpu_torch/csrc``;
 3. tile_stats (K2) against its plain torch version on the card, bit for bit,
    on ``[16, 512, 512]`` DEM-like tiles with negatives, ties and a constant
-   tile; kernel, plain and ``torch.quantile`` times;
+   tile (the one-read route) and on the same tiles one float off 16-byte
+   alignment (the streaming route); kernel times at 16, 32 and 25 tiles,
+   plain and ``torch.quantile`` times;
 4. hr_tail (K1) against its plain torch version on the card, at the flagship
-   artifact's fuse/head weights and ``[8,128,128,128] + [8,128,128,32]``;
+   artifact's fuse/head weights and ``[8,128,128,128] + [8,128,128,32]``: the
+   tensor-core route (3xTF32 ``wgmma``) at 8 tiles and at 1, and the direct
+   route (f32 on the CUDA cores) at 8 tiles beside it;
 5. ``tohr`` on every ``tests/data/synth_*`` case, metrics equal to
    ``case_spec.json`` at its precision; K2 launched on every case, K1 on
-   ``synth_flagship``;
+   ``synth_flagship`` (its tensor-core route);
 6. a timed 4096² scene (256² LR depth) with the flagship artifact, the
-   kernels' launch counts read from that run, and the worker's stage times
-   (with ``--profile``, a third run traced by ``torch.profiler``: device time
-   by kernel and the device's idle share, from the kernel and copy events);
+   kernels' launch counts read from that run (every K1 call on the
+   tensor-core route, every K2 launch on the one-read route), and the
+   worker's stage times (with ``--profile``, a third run traced by
+   ``torch.profiler``: device time by kernel and the device's idle share,
+   from the kernel and copy events);
 7. relax_step (K3) against its plain torch version on the card, bit for bit
    after 1 and after 64 relaxations, on a ``[4096, 4096]`` grid (costs in
    [1, 5] with ``inf`` walls, a few hundred seeds, one on the edge, two
@@ -59,9 +65,11 @@ ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 FLAGSHIP = DATA / "_artifacts" / "model_infer_flagship.fsrz"
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 (non-tensor) peak.
+# NVIDIA H100 SXM data sheet (700 W): HBM3 bandwidth, the f32 (non-tensor)
+# peak and the dense TF32 tensor-core peak.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
 
 SCENE_SIZE = 4096  # HR pixels per side of the timed scene (256² LR depth)
 
@@ -85,10 +93,10 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    """Least time in ms for the work: bytes at HBM rate vs f32 ops at peak."""
+def bound(nbytes: float, nops: float, ops_per_s: float = PEAK_F32_PER_S) -> tuple[float, str]:
+    """Least time in ms for the work: bytes at HBM rate vs operations at their peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_F32_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -136,18 +144,51 @@ def phase_tile_stats(torch, rng) -> dict:
     from floodsr_tpu_torch.ops.kernels import tile_stats as ts
 
     n, size, pct = 16, 512, 95.0
-    dem = torch.from_numpy(dem_like_tiles(rng, n, size)).cuda()
+    tiles = dem_like_tiles(rng, 32, size)
+    dem32 = torch.from_numpy(tiles).cuda()
+    dem = dem32[:n]
+    ts.route_launches.update(one_read=0, stream=0)
     got = ts.tile_stats_cuda(dem, pct)
     want = ts.tile_stats_reference(dem, pct)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         diff = (got - want).abs().max().item()
         raise AssertionError(f"tile_stats kernel != plain version (max |diff| {diff})")
+    if ts.route_launches != {"one_read": 1, "stream": 0}:
+        raise AssertionError(f"tile_stats at {size}² did not take the one-read route: {ts.route_launches}")
+    # The same tiles one float into their storage: off 16-byte alignment, so
+    # the streaming route with scalar loads.
+    store = torch.empty(dem.numel() + 1, device="cuda")
+    store[1:] = dem.reshape(-1)
+    off = store[1:].view(n, size, size)
+    got_off = ts.tile_stats_cuda(off, pct)
+    torch.cuda.synchronize()
+    if not torch.equal(got_off, want) or ts.route_launches != {"one_read": 1, "stream": 1}:
+        raise AssertionError(f"tile_stats streaming route != plain version ({ts.route_launches})")
     # Library yardstick: linear-interpolated quantile of the clamped tiles.
     clamped = torch.clamp_min(dem.reshape(n, -1), 0.0)
     lib = torch.quantile(clamped, pct / 100.0, dim=1, interpolation="linear")
     lib_err = (lib - want[:, 0]).abs().max().item()
+    # The scene's batches: 32 tiles three times, then 25. Clusters of 8 blocks,
+    # one block an SM, so these run in two waves: each is held against the
+    # plain version too, twice (a race would not repeat), before it is timed.
+    dem25 = dem32[:25]
+    for batch in (dem32, dem25):
+        want_b = ts.tile_stats_reference(batch, pct)
+        for _ in range(2):
+            got_b = ts.tile_stats_cuda(batch, pct)
+            torch.cuda.synchronize()
+            if not torch.equal(got_b, want_b):
+                bad = int((got_b != want_b).any(dim=1).sum())
+                raise AssertionError(
+                    f"tile_stats kernel != plain version at {batch.shape[0]} tiles ({bad} tiles differ)"
+                )
+    if ts.route_launches != {"one_read": 5, "stream": 1}:
+        raise AssertionError(f"tile_stats at 32 and 25 tiles did not take the one-read route: {ts.route_launches}")
     ms = time_ms(torch, lambda: ts.tile_stats_cuda(dem, pct))
+    ms32 = time_ms(torch, lambda: ts.tile_stats_cuda(dem32, pct))
+    ms25 = time_ms(torch, lambda: ts.tile_stats_cuda(dem25, pct))
+    stream_ms = time_ms(torch, lambda: ts.tile_stats_cuda(off, pct))
     plain_ms = time_ms(torch, lambda: ts.tile_stats_reference(dem, pct), reps=3, warmup=1)
     library_ms = time_ms(
         torch, lambda: torch.quantile(
@@ -156,15 +197,20 @@ def phase_tile_stats(torch, rng) -> dict:
         ), reps=5, warmup=1,
     )
     count = size * size
-    bound_ms, bound_by = bound(
-        nbytes=dem.numel() * 4 + n * 3 * 4,
-        # two compares per element for min/max, two per bisection step
-        nops=n * count * (2 + 2 * ts.BISECT_ITERS),
+    # One compare per element for each of min and max, and one bin index per
+    # element for each of the select's (at most three) digit passes.
+    bound_ms, bound_by = bound(nbytes=dem.numel() * 4 + n * 3 * 4, nops=n * count * (2 + 3))
+    bound32_ms = bound(nbytes=dem32.numel() * 4 + 32 * 3 * 4, nops=0)[0]
+    log(
+        f"[tile_stats] [{n},{size},{size}] bitwise equal to plain on both routes, [32,...] and "
+        f"[25,...] on the one-read route; one-read "
+        f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound), streaming route (scalar loads) "
+        f"{stream_ms:.4f} ms, plain {plain_ms:.3f} ms, torch.quantile {library_ms:.3f} ms "
+        f"(max |quantile - p_clip| {lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by})"
     )
     log(
-        f"[tile_stats] [{n},{size},{size}] bitwise equal to plain; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, torch.quantile {library_ms:.3f} ms "
-        f"(max |quantile - p_clip| {lib_err:.3e}), bound {bound_ms:.5f} ms ({bound_by})"
+        f"[tile_stats] the scene's batches: [32,{size},{size}] {ms32:.4f} ms (bound "
+        f"{bound32_ms:.5f} ms), [25,{size},{size}] {ms25:.4f} ms (bound {bound32_ms * 25 / 32:.5f} ms)"
     )
     return {
         "name": "tile_stats",
@@ -178,6 +224,9 @@ def phase_tile_stats(torch, rng) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "launches": None,
+        "ms_32_tiles": ms32,
+        "ms_25_tiles": ms25,
+        "stream_route_ms": stream_ms,
     }
 
 
@@ -197,16 +246,31 @@ def phase_hr_tail(torch, rng) -> dict:
     # Post-ReLU features, as the tail sees them.
     sr = torch.from_numpy(np.abs(rng.normal(0, 1, (b, hw, hw, ca))).astype(np.float32)).cuda()
     dem = torch.from_numpy(np.abs(rng.normal(0, 1, (b, hw, hw, cb))).astype(np.float32)).cuda()
-    got = ht.hr_tail_cuda(sr, dem, *weights)
+    tc_pack = ht.pack_hr_tail_tc(weights)
+    ht.route_launches.update(tensor=0, direct=0)
+    got = ht.hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack)
     want = ht.hr_tail_reference(sr, dem, *weights)
     torch.cuda.synchronize()
+    if ht.route_launches != {"tensor": 1, "direct": 0}:
+        raise AssertionError(f"hr_tail at the flagship widths did not take the tensor-core route: {ht.route_launches}")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    # f32 sums in another order than cuDNN's: ~1e-6 relative per layer
-    # through five convolutions; 1e-4 of the output's range bounds it.
+    # 3xTF32 products summed in the tensor core's f32 accumulator, in another
+    # order than cuDNN's f32: f32-rounding level per layer through five
+    # convolutions; 1e-4 of the output's range bounds it.
     if not err <= 1e-4 * scale:
         raise AssertionError(f"hr_tail kernel vs plain: max |diff| {err} > 1e-4 * {scale}")
-    ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights), reps=10)
+    # The scene's last batch is one tile.
+    got1 = ht.hr_tail_cuda(sr[:1], dem[:1], *weights, tc_pack=tc_pack)
+    direct = ht.hr_tail_cuda(sr, dem, *weights, route="direct")
+    torch.cuda.synchronize()
+    err1 = (got1 - want[:1]).abs().max().item()
+    err_direct = (direct - want).abs().max().item()
+    if not max(err1, err_direct) <= 1e-4 * scale:
+        raise AssertionError(f"hr_tail vs plain: one tile {err1}, direct route {err_direct} > 1e-4 * {scale}")
+    ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack), reps=10)
+    ms1 = time_ms(torch, lambda: ht.hr_tail_cuda(sr[:1], dem[:1], *weights, tc_pack=tc_pack), reps=10)
+    direct_ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="direct"), reps=5)
     plain_ms = time_ms(torch, lambda: ht.hr_tail_reference(sr, dem, *weights), reps=10)
 
     # Library yardstick: the same chain of cuDNN convolutions on NCHW inputs
@@ -231,12 +295,22 @@ def phase_hr_tail(torch, rng) -> dict:
     cin, cm, ch = ca + cb, ca, cfg.hr_s2d ** 2
     macs = b * hw * hw * (9 * cin * cm + 3 * 9 * cm * cm + cin * cm + cm * ch)
     nbytes = (sr.numel() + dem.numel() + got.numel() + sum(t.numel() for t in weights)) * 4
-    bound_ms, bound_by = bound(nbytes=nbytes, nops=2 * macs)
+    # Every MAC is three TF32 products on the tensor cores (lo*Whi, hi*Wlo,
+    # hi*Whi), so the route's operations are 3 x 2 x MACs at the TF32 peak.
+    bound_ms, bound_by = bound(nbytes=nbytes, nops=3 * 2 * macs, ops_per_s=PEAK_TF32_PER_S)
+    f32_bound_ms = bound(nbytes=nbytes, nops=2 * macs)[0]
+    one_product_ms = bound(nbytes=nbytes, nops=2 * macs, ops_per_s=PEAK_TF32_PER_S)[0]
     log(
         f"[hr_tail] [{b},{hw},{hw},{ca}]+[{b},{hw},{hw},{cb}] max |kernel - plain| "
-        f"{err:.3e} (max |plain| {scale:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"cuDNN chain {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
-        f"{2 * macs / 1e9:.1f} GFLOP)"
+        f"{err:.3e} (max |plain| {scale:.3e}; one tile {err1:.3e}, direct route {err_direct:.3e}); "
+        f"tensor-core kernel {ms:.3f} ms ({bound_ms / ms:.1%} of the bound), one tile {ms1:.3f} ms, "
+        f"direct route {direct_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN chain {library_ms:.3f} ms"
+    )
+    log(
+        f"[hr_tail] bound {bound_ms:.3f} ms ({bound_by}: 3xTF32 on the tensor cores, "
+        f"{3 * 2 * macs / 1e9:.1f} GFLOP at {PEAK_TF32_PER_S / 1e12:.0f} TFLOP/s); beside it "
+        f"{f32_bound_ms:.3f} ms (f32 on the CUDA cores, the direct route's bound) and "
+        f"{one_product_ms:.3f} ms (one TF32 product); at one tile {bound_ms / b:.4f} ms"
     )
     engine.close()
     return {
@@ -251,13 +325,17 @@ def phase_hr_tail(torch, rng) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "launches": None,
+        "bound_peak": "3xTF32 on the tensor cores",
+        "ms_1_tile": ms1,
+        "direct_route_ms": direct_ms,
+        "direct_route_bound_ms": f32_bound_ms,
     }
 
 
 def phase_tohr_cases() -> None:
     from floodsr_tpu_torch.eval import compute_depth_error_metrics
     from floodsr_tpu_torch.io import read_raster
-    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
     from floodsr_tpu_torch.ops.normalize import replace_nodata_with_zero
     from floodsr_tpu_torch.tohr import tohr
 
@@ -295,8 +373,12 @@ def phase_tohr_cases() -> None:
                     raise AssertionError(f"{case_dir.name}/{label}: {got} != {want}")
                 if counts["tile_stats"] <= 0:
                     raise AssertionError(f"{case_dir.name}: tile_stats kernel never launched")
-                if case_dir.name == "synth_flagship" and counts["hr_tail"] <= 0:
-                    raise AssertionError("synth_flagship: hr_tail kernel never launched")
+                if case_dir.name == "synth_flagship" and (
+                    counts["hr_tail"] <= 0 or route_counts()["hr_tail"]["tensor"] != counts["hr_tail"]
+                ):
+                    raise AssertionError(
+                        f"synth_flagship: hr_tail's tensor-core route did not run: {route_counts()}"
+                    )
 
 
 class _StageLog(logging.Handler):
@@ -346,10 +428,12 @@ def scene_inputs(tmp: Path, seed: int, size: int) -> tuple[Path, Path]:
 # Kernel-name fragments of each hand-written kernel, for its share of the
 # traced device time.
 KERNEL_NAMES = {
-    "tile_stats": ("tile_stats_kernel",),
-    "hr_tail": ("affine_relu_conv3x3_kernel", "conv1x1_kernel"),
+    "tile_stats": ("tile_stats_one_read_kernel", "tile_stats_stream_kernel"),
+    "hr_tail": ("conv_tc_kernel", "affine_relu_conv3x3_kernel", "conv1x1_kernel"),
     "relax_step": ("relax_step_kernel",),
 }
+# The four launches of one hr_tail call on the tensor-core route, in order.
+HR_TAIL_TC_LAUNCHES = ("f1.conv1", "f1.conv2 + proj", "f2.conv1", "f2.conv2 + y1 + head")
 
 
 def device_profile(torch, run) -> dict:
@@ -357,12 +441,16 @@ def device_profile(torch, run) -> dict:
 
     Only device-side events (kernels, copies, sets) are summed: an operator's
     row in ``key_averages()`` repeats the time of the kernels it launched.
-    Busy time is the union of those events' intervals.
+    Busy time is the union of those events' intervals. Raises if a kernel of
+    ``KERNEL_NAMES`` that ``run()`` launched shows no traced device time.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
     torch.cuda.synchronize()
+    reset_launch_counts()
     t0 = time.perf_counter()
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
@@ -372,6 +460,7 @@ def device_profile(torch, run) -> dict:
     wall_s = time.perf_counter() - t0
     spans = []
     by_name = {}
+    tc_events = []
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -380,6 +469,8 @@ def device_profile(torch, run) -> dict:
             continue
         spans.append((t_start, t_end))
         by_name[evt.name] = by_name.get(evt.name, 0.0) + (t_end - t_start)
+        if "conv_tc_kernel" in evt.name:
+            tc_events.append((t_start, t_end - t_start))
     if not spans:
         raise AssertionError("the profiler recorded no device events")
     spans.sort()
@@ -395,6 +486,21 @@ def device_profile(torch, run) -> dict:
         kname: sum(us for name, us in by_name.items() if any(f in name for f in frags)) / 1e3
         for kname, frags in KERNEL_NAMES.items()
     }
+    for kname, count in launch_counts().items():
+        if count > 0 and not kernel_ms[kname] > 0.0:
+            raise AssertionError(
+                f"{kname} launched {count} time(s) in the traced run but no device event "
+                f"matches {KERNEL_NAMES[kname]}"
+            )
+    # K1's device time by its place in a call (one stream, so start order is
+    # launch order).
+    tc_events.sort()
+    if len(tc_events) % len(HR_TAIL_TC_LAUNCHES):
+        raise AssertionError(f"{len(tc_events)} conv_tc_kernel launches are not whole hr_tail calls")
+    tc_by_launch = {
+        name: sum(us for _, us in tc_events[i :: len(HR_TAIL_TC_LAUNCHES)]) / 1e3
+        for i, name in enumerate(HR_TAIL_TC_LAUNCHES)
+    }
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     # The traced run's wall time includes the profiler's own overhead; the
     # caller sets the device busy time against an untraced run instead.
@@ -403,6 +509,8 @@ def device_profile(torch, run) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_event_sum_s": sum(by_name.values()) / 1e6,
         "kernel_device_ms": kernel_ms,
+        "hr_tail_tc_calls": len(tc_events) // len(HR_TAIL_TC_LAUNCHES),
+        "hr_tail_tc_ms_by_launch": tc_by_launch,
         "kernel_share_of_busy": {k: v / (busy_us / 1e3) for k, v in kernel_ms.items()},
         "top_device_ms": {k[:80]: v / 1e3 for k, v in top},
     }
@@ -410,7 +518,7 @@ def device_profile(torch, run) -> dict:
 
 def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict:
     from floodsr_tpu_torch.io import read_raster
-    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
     from floodsr_tpu_torch.tohr import tohr
 
     stage_log = _StageLog()
@@ -437,6 +545,7 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
         torch.cuda.synchronize()
         e2e_s = time.perf_counter() - t0
         counts = launch_counts()
+        routes = route_counts()
         peak = torch.cuda.max_memory_allocated()
         stages = dict(stage_log.stages)
         pred, _, _ = read_raster(out_fp)
@@ -450,7 +559,7 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
         f"warm-up run {warm_s:.3f} s, timed run {e2e_s:.3f} s end to end, "
         f"{tiles / e2e_s:.1f} tiles/s, {size * size / e2e_s / 1e6:.1f} MP/s HR output; "
         f"device exec {timings['exec_s']:.4f} s ({tiles / timings['exec_s']:.1f} tiles/s); "
-        f"peak allocated {peak / 2**20:.1f} MiB; launches {counts}"
+        f"peak allocated {peak / 2**20:.1f} MiB; launches {counts}, by route {routes}"
     )
     log(f"[scene] timings {json.dumps(timings)}")
     # tohr = worker set-up (artifact load onto the device) + worker.run.
@@ -461,9 +570,13 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
         prof["device_idle_share_of_timed_run"] = 1.0 - prof["device_busy_s"] / e2e_s
         prof["device_idle_share_of_traced_run"] = 1.0 - prof["device_busy_s"] / prof["traced_wall_s"]
         log(f"[profile] {json.dumps(prof)}")
-    for name in ("tile_stats", "hr_tail"):
+    for name, route in (("tile_stats", "one_read"), ("hr_tail", "tensor")):
         if counts[name] <= 0:
             raise AssertionError(f"timed scene: {name} kernel never launched")
+        if routes[name][route] != counts[name]:
+            raise AssertionError(
+                f"timed scene: {name} took another route than {route!r}: {routes[name]}"
+            )
     return {"launches": counts, "e2e_s": e2e_s, "tiles": tiles, "timings": timings}
 
 

@@ -14,29 +14,78 @@
 // as in the TPU kernel (:412-422): pixels outside the image load as 0 after
 // the affine and ReLU.
 //
-// How: six launches of two hand-written kernels, in the order proj,
-// f1.conv1, f1.conv2 (+proj), f2.conv1, f2.conv2 (+y1), head; the
-// intermediates are [B, H, W, Cm] f32 in device memory.
-//  - affine_relu_conv3x3: a direct 3x3 conv. A block computes 8 rows x 32
-//    columns x 32 output channels, looping over input channels in chunks of
-//    16; each chunk's input patch (halo 1) and weights are staged in shared
-//    memory, the folded BN-affine and ReLU applied as the patch loads. The
-//    input is read as two channel ranges (sr | dem), so the concat is never
-//    materialized. The epilogue adds the bias and, optionally, a residual
-//    (which may alias the output: each element is read and then written by
-//    the same thread).
-//  - conv1x1: a tiled pointwise product (128 pixels x 32 channels a block).
-// Arithmetic is f32 FMA on the CUDA cores, for parity with the JAX f32 path.
+// Two routes, chosen by the wrapper from the channel counts alone. The input
+// is read as two channel ranges (sr | dem), so the concat is never
+// materialized. Intermediates are [B, H, W, Cm] f32 in device memory.
+//
+//  - Tensor-core route (hr_tail_tc_launch; Cm = 128, Ch = 16, Ca and Cb
+//    multiples of 4, Ca + Cb a multiple of 16): four launches of
+//    tc::conv_tc_kernel, one implicit-GEMM 3x3 convolution:
+//        y  = f1.conv1(relu(bn1 x))
+//        y1 = f1.conv2(relu(bn2 y)) + proj(x)   the projection as ten more
+//                                               chunks of K on the raw x
+//        z  = f2.conv1(relu(bn1 y1))
+//        out = head(f2.conv2(relu(bn2 z)) + y1) y1 starts the sums; y2 never
+//                                               reaches device memory
+//      * GEMM: M = pixels, N = the 128 output channels (all in one block),
+//        K = taps x input channels. wgmma.mma_async m64n128k8 with TF32
+//        operands from shared memory and f32 accumulators in registers.
+//      * Precision: 3xTF32. Every f32 operand is split into hi = tf32(x)
+//        (cvt.rna: nearest, ties away from zero) and lo = tf32(x - hi); a
+//        product is lo*Whi + hi*Wlo + hi*Whi in that order, summed in the f32
+//        accumulator, so the result stays at f32-rounding level. (The
+//        accumulator chops where an FMA rounds: 1.4e-5 of the output's range
+//        against the plain version, where the direct route has 1.8e-6.)
+//      * A block is 4 image rows x 64 columns = 256 pixels: two consumer
+//        warpgroups, each with two 64-pixel GEMM tiles (one per image row,
+//        128 accumulator registers a thread), and one producer warpgroup. The
+//        64 rows of a GEMM tile are 64 consecutive pixels of one image row,
+//        so every tap is a constant byte offset into one staged patch.
+//      * The patch (halo 1) is staged once per block and 16-channel chunk by
+//        three producer warps: float4 loads, affine (__fmul_rn/__fadd_rn) +
+//        ReLU, zero outside the image, hi/lo split, stored in the no-swizzle
+//        K-major wgmma layout with the pixel as the row: plane[channel quad]
+//        [patch pixel][4 channels], so a row is 16 bytes, 8 rows are one
+//        128-byte core matrix wherever the tap's offset starts, SBO = 128
+//        and LBO = the plane stride. Two patch buffers: the next chunk is
+//        staged while this one multiplies.
+//      * Weights are split and laid out once per set of weights on the host
+//        (one slab [hi|lo][channel quad][cout][4] per chunk and tap); one
+//        producer thread streams them through a 4-stage ring with
+//        cp.async.bulk + mbarrier, 16 KB a stage. 256 pixels a block keeps
+//        the L2 re-reads of the 1.18 MB of hi+lo weights of a 3x3 at 0.6 GB
+//        a convolution.
+//      * The residual initializes the accumulators (its loads overlap the
+//        pipeline's fill; it may alias the output: each element is read and
+//        later written by the same thread); the epilogue adds the bias and
+//        stores float2 from the wgmma fragment layout.
+//      * The fused head: each warpgroup writes its 64-pixel tile of y2, split
+//        into hi and lo, over the then idle pipeline buffers in the A layout
+//        and runs 16 more k8 steps of m64n16k8 against the head's weights.
+//      * A barrier that is not reached within seconds traps, so a protocol
+//        fault shows as a launch error and not as a hang.
+//  - Direct route (hr_tail_launch; any channel counts): the first version of
+//    this port, f32 FMA on the CUDA cores, six launches (proj, four 3x3, the
+//    head). affine_relu_conv3x3 computes 8 rows x 32 columns x 32 output
+//    channels a block, looping over input channels in chunks of 16 staged in
+//    shared memory; conv1x1 is a tiled pointwise product (128 pixels x 32
+//    channels a block).
 //
 // What bounds it on the card: operations. 10.64 GMAC (21.3 GFLOP) per
-// 128x128 tile at the flagship widths, 0.32 ms per tile at the H100 SXM's
-// 67 TFLOP/s f32 (non-tensor) peak; its bytes (one read of the inputs, one
-// write of the output) take under a tenth of that. This first version keeps
-// a 4x8 register tile per thread (8 FMAs per shared-memory load) and
-// round-trips the five intermediates through device memory; a fused
-// single-pass design and the tensor cores (wgmma/TMA) are later work.
+// 128x128 tile at the flagship widths. On the tensor-core route every MAC is
+// three TF32 products: 3 x 170.2 GFLOP at 8 tiles over the H100 SXM's 495
+// TFLOP/s dense TF32 is 1.032 ms (one product alone: 0.344 ms). On the
+// direct route 170.2 GFLOP over 67 TFLOP/s f32 (non-tensor) is 2.540 ms. The
+// bytes (one read of the inputs, one write of the output) take under a
+// tenth of either. What holds the tensor-core route above its bound: every
+// m64n128k8 reads 6 KB of operands from shared memory in the 64 clocks it
+// needs at peak, three quarters of the SM's 128 bytes a clock before the
+// stagers' and the bulk copies' writes; a block's fill and epilogue are not
+// overlapped with another block's sums (168 registers a thread and 169 KB of
+// shared memory allow one block an SM).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -250,9 +299,547 @@ enum {
   N_WEIGHTS
 };
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core route: one implicit-GEMM convolution on wgmma, 3xTF32.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kStagers = 96;    // producer warps 1-3 stage the patch; warp 0 streams weights
+constexpr int TR = 4;           // image rows per block
+constexpr int TWX = 64;         // image columns per block: the 64 rows of one wgmma
+constexpr int CK = 16;          // input channels per patch stage (two k8 steps)
+constexpr int NB = 4;           // weight ring stages, one (chunk, tap) slab each
+constexpr int kPixLanes = kStagers / 4;  // stager threads along the patch row
+constexpr int TAPS = 9;         // 3x3
+constexpr int N = 128;          // output channels: the width of one wgmma
+constexpr int NACC = N / 2;     // accumulator registers of one m64nN tile
+
+// The staged patch: the block's pixels with a halo of 1.
+constexpr int PH = TR + 2;
+constexpr int PW = TWX + 2;
+constexpr int PIX = PH * PW;
+// Plane length in pixels, = 2 mod 8: the four channel quads that a stager
+// quarter-warp writes for two neighbouring pixels then fall into eight
+// different 16-byte bank groups.
+constexpr int PLANE_PIX = PIX + ((2 - PIX % 8) + 8) % 8;
+constexpr int PLANE = PLANE_PIX * 16;     // bytes: [pixel][4 channels]
+constexpr int A_HALF = (CK / 4) * PLANE;  // the hi (or lo) patch
+constexpr int A_STAGE = 2 * A_HALF;       // hi then lo
+constexpr int NPX = (PW + kPixLanes - 1) / kPixLanes;
+
+constexpr int QB = N * 16;             // bytes of one channel quad of weights
+constexpr int B_HALF = (CK / 4) * QB;  // hi (or lo) weights of one ring stage
+constexpr int B_STAGE = 2 * B_HALF;
+
+constexpr int HEAD_N = 16;                       // output channels of the fused 1x1 head
+constexpr int HEAD_W_BYTES = 2 * N * HEAD_N * 4;  // its hi and lo weights
+constexpr int Y_PLANE = TWX * 16;                // one channel quad of a 64-pixel y tile
+constexpr int Y_HALF = (N / 4) * Y_PLANE;        // the hi (or lo) y tile of one warpgroup
+static_assert(2 * 2 * Y_HALF <= 2 * A_STAGE + NB * B_STAGE,
+              "the head's y tiles must fit the pipeline buffers");
+
+template <bool HEAD>
+constexpr int smem_bytes() {
+  // two patch stages, NB weight stages, the head's weights, 2 + 2 + NB + NB + 1 barriers
+  return 2 * A_STAGE + NB * B_STAGE + (HEAD ? HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase with this parity has completed; trap after
+// about two seconds, so a fault in the protocol is a launch error, not a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000ll) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Barrier id among count threads (id 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle, K-major: a core matrix is 8
+// rows of 16 bytes, contiguous; lbo is the byte stride between the two core
+// matrices of a k8 step, sbo the stride between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Nearest TF32 value, ties away from zero (the low 13 mantissa bits come out 0).
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ float act(float raw, float a, float c) {
+  return fmaxf(__fadd_rn(__fmul_rn(raw, a), c), 0.f);
+}
+
+// out[b, y, x, :N] = bias (+ bias2) (+ res) + sum over taps and input channels
+// of f(x)[b, y+ky-1, x+kx-1, ci] * w[tap, ci, :] (+ x2[b, y, x, :] @ w2), with
+// f = relu(a*x + c), zero outside the image. x = (xa | xb) is the convolved
+// input; x2 = (x2a | x2b), when it has channels, is a second input
+// that enters raw through a 1x1 product (the block's projection shortcut):
+// more K for the same accumulators, at the patch's centre tap. res, when
+// given, initializes the accumulators. wpack holds one slab
+// [hi|lo][CK/4][N][4] per (chunk, tap) of x, then one per chunk of x2. Every
+// channel count is a multiple of 4, ca + cb and c2a + c2b multiples of CK.
+//
+// With HEAD, the result y is not stored: out[b, y, x, :16] = y @ head_w +
+// head_b. Each warpgroup writes a 64-pixel tile of y, split into
+// hi and lo, over the idle pipeline buffers in the A-operand layout and
+// multiplies it with the head's hi/lo weights (head_pack: N/CK slabs of
+// [hi|lo][CK/4][16][4], loaded once at the start) in 16 more k8 steps.
+template <bool HEAD>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
+               const float* __restrict__ aff_a, const float* __restrict__ aff_c,
+               const float* x2a, int c2a, const float* x2b, int c2b,
+               const float* __restrict__ wpack, const float* __restrict__ bias,
+               const float* __restrict__ bias2, const float* res,
+               const float* __restrict__ head_pack, const float* __restrict__ head_bias,
+               float* out, int H, int W) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* a_buf = smem;
+  unsigned char* b_buf = smem + 2 * A_STAGE;
+  const uint32_t a_smem = smem_u32(a_buf);
+  const uint32_t b_smem = smem_u32(b_buf);
+  const uint32_t h_smem = b_smem + NB * B_STAGE;  // the head's weights, hi then lo per slab
+  const uint32_t bars = h_smem + (HEAD ? HEAD_W_BYTES : 0);
+  const uint32_t full_a = bars;             // [2] the stagers' arrivals
+  const uint32_t empty_a = bars + 16;       // [2] one arrival per consumer warp
+  const uint32_t full_b = bars + 32;        // [NB] the bulk copy's bytes
+  const uint32_t empty_b = full_b + 8 * NB; // [NB] one arrival per consumer warp
+  const uint32_t full_h = empty_b + 8 * NB; // the head's weights have landed
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int x0 = blockIdx.x * TWX;
+  const int y0 = blockIdx.y * TR;
+  const int b = blockIdx.z;
+  const int n1 = (ca + cb) / CK;          // chunks of the convolved input
+  const int nchunks = n1 + (c2a + c2b) / CK;  // then the chunks of the 1x1 input
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_a + 8 * s, kStagers);
+      mbar_init(empty_a + 8 * s, 8);
+    }
+    for (int s = 0; s < NB; ++s) {
+      mbar_init(full_b + 8 * s, 1);
+      mbar_init(empty_b + 8 * s, 8);
+    }
+    mbar_init(full_h, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 8) {
+    // ---- consumers: warpgroup wg multiplies image rows 2*wg and 2*wg + 1 ----
+    const int wg = warp >> 2;
+    // The m64nN fragment: thread (warp w, lane l) of the warpgroup holds rows
+    // 16w + l/4 and + 8, columns 8j + 2(l%4) and + 1, as acc[4j + 2*half + 0/1].
+    const int wq = warp & 3;
+    float acc[2][NACC];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int gy = y0 + wg * 2 + mt;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+        const bool live = res != nullptr && gy < H && gx < W;
+        const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          // The residual starts the sums; its loads overlap the pipeline's fill.
+          float2 r = make_float2(0.f, 0.f);
+          if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
+          acc[mt][4 * j + 2 * half] = r.x;
+          acc[mt][4 * j + 2 * half + 1] = r.y;
+        }
+      }
+    }
+
+    uint32_t it = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      const int sa = c & 1;
+      mbar_wait(full_a + 8 * sa, (c >> 1) & 1);
+      const uint32_t a_rows = a_smem + sa * A_STAGE + (wg * 2 * PW) * 16;
+      const int ntaps = c < n1 ? TAPS : 1;
+      const int tap0 = c < n1 ? 0 : TAPS / 2;  // the 1x1 input sits at the centre tap
+#pragma unroll 1
+      for (int t = 0; t < ntaps; ++t, ++it) {
+        const int tap = tap0 + t;
+        const uint32_t sb = it & (NB - 1);
+        mbar_wait(full_b + 8 * sb, (it / NB) & 1);
+        const int ky = tap / 3;
+        const int kx = tap - 3 * ky;
+        const uint32_t a_tap = a_rows + (ky * PW + kx) * 16;
+        const uint32_t b_hi = b_smem + sb * B_STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < CK / 8; ++kk) {
+          const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
+          const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
+            const uint64_t dah = smem_desc(a0, PLANE, 128);
+            const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
+            wgmma_tf32(acc[mt], dal, dbh);  // small terms first
+            wgmma_tf32(acc[mt], dah, dbl);
+            wgmma_tf32(acc[mt], dah, dbh);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        // The group before this one has finished reading its stages.
+        if (it > 0 && lane == 0) {
+          mbar_arrive(empty_b + 8 * ((it - 1) & (NB - 1)));
+          if (t == 0) mbar_arrive(empty_a + 8 * ((c - 1) & 1));
+        }
+      }
+    }
+    wgmma_wait<0>();
+    // Keep the compiler from reading the accumulators before the wait.
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[mt][i])::"memory");
+
+    // Epilogue: bias, store (the residual may alias out: each element was
+    // read above by the thread that writes it here).
+    if (!HEAD) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int gy = y0 + wg * 2 + mt;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+          if (gy >= H || gx >= W) continue;
+          const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * (lane & 3));
+            float2 v;
+            v.x = acc[mt][4 * j + 2 * half] + bv.x;
+            v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
+            if (bias2 != nullptr) {
+              const float2 b2 = *reinterpret_cast<const float2*>(bias2 + 8 * j + 2 * (lane & 3));
+              v.x = v.x + b2.x;
+              v.y = v.y + b2.y;
+            }
+            *reinterpret_cast<float2*>(out + base + 8 * j) = v;
+          }
+        }
+      }
+    } else {
+      // Both warpgroups have finished reading the pipeline's buffers; each
+      // takes its own part of them for its y tiles.
+      named_barrier(1, 256);
+      mbar_wait(full_h, 0);
+      unsigned char* y_buf = smem + wg * 2 * Y_HALF;
+      const uint32_t y_smem = a_smem + wg * 2 * Y_HALF;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // y = sums + bias, split, in the A layout: plane[channel quad][pixel][4].
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+            float2 v;
+            v.x = acc[mt][4 * j + 2 * half] + bv.x;
+            v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
+            if (bias2 != nullptr) {
+              const float2 b2 = *reinterpret_cast<const float2*>(bias2 + col);
+              v.x = v.x + b2.x;
+              v.y = v.y + b2.y;
+            }
+            float2 hi, lo;
+            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+            unsigned char* dst = y_buf + (col >> 2) * Y_PLANE + px * 16 + (col & 3) * 4;
+            *reinterpret_cast<float2*>(dst) = hi;
+            *reinterpret_cast<float2*>(dst + Y_HALF) = lo;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(2 + wg, 128);
+        float hacc[HEAD_N / 2];
+#pragma unroll
+        for (int i = 0; i < HEAD_N / 2; ++i) hacc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < N / 8; ++ks) {
+          constexpr int HQ = HEAD_N * 16;  // bytes of one channel quad of head weights
+          const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HEAD_N * 4) + (ks & 1) * 2 * HQ;
+          const uint64_t dbh = smem_desc(hw, HQ, 128);
+          const uint64_t dbl = smem_desc(hw + CK * HEAD_N * 4, HQ, 128);
+          const uint64_t dah = smem_desc(y_smem + ks * 2 * Y_PLANE, Y_PLANE, 128);
+          const uint64_t dal = smem_desc(y_smem + Y_HALF + ks * 2 * Y_PLANE, Y_PLANE, 128);
+          wgmma_tf32(hacc, dal, dbh);
+          wgmma_tf32(hacc, dah, dbl);
+          wgmma_tf32(hacc, dah, dbh);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < HEAD_N / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+        const int gy = y0 + wg * 2 + mt;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+          if (gy >= H || gx >= W) continue;
+          const size_t base = (((size_t)b * H + gy) * W + gx) * HEAD_N + 2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < HEAD_N / 8; ++j) {
+            const float2 hb = *reinterpret_cast<const float2*>(head_bias + 8 * j + 2 * (lane & 3));
+            float2 v;
+            v.x = hacc[4 * j + 2 * half] + hb.x;
+            v.y = hacc[4 * j + 2 * half + 1] + hb.y;
+            *reinterpret_cast<float2*>(out + base + 8 * j) = v;
+          }
+        }
+        // The tile is read; the next one may overwrite it.
+        named_barrier(2 + wg, 128);
+      }
+    }
+  } else if (warp == 8) {
+    // ---- producer warp 0: stream the weight slabs through the ring ----
+    if (lane == 0) {
+      if (HEAD) {
+        mbar_arrive_expect_tx(full_h, HEAD_W_BYTES);
+        bulk_load(h_smem, head_pack, HEAD_W_BYTES, full_h);
+      }
+      const uint32_t total = (uint32_t)(n1 * TAPS + (nchunks - n1));
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(wpack);
+      for (uint32_t it = 0; it < total; ++it) {
+        const uint32_t sb = it & (NB - 1);
+        mbar_wait(empty_b + 8 * sb, ((it / NB) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_b + 8 * sb, B_STAGE);
+        bulk_load(b_smem + sb * B_STAGE, src + (size_t)it * B_STAGE, B_STAGE, full_b + 8 * sb);
+      }
+    }
+  } else {
+    // ---- producer warps 1-3: stage the activated, split patch ----
+    const int t = tid - 288;
+    const int q = t & 3;    // channel quad of the chunk
+    const int pc = t >> 2;  // pixel lane along the patch row
+    for (int c = 0; c < nchunks; ++c) {
+      const int sa = c & 1;
+      mbar_wait(empty_a + 8 * sa, ((c >> 1) & 1) ^ 1);
+      const bool second = c >= n1;  // a chunk of the raw 1x1 input
+      const int gc = (second ? c - n1 : c) * CK + q * 4;
+      const float* pa = second ? x2a : xa;
+      const float* pb = second ? x2b : xb;
+      const int na = second ? c2a : ca;
+      const int nb = second ? c2b : cb;
+      const float* src;
+      int cs, coff;
+      if (gc < na) {
+        src = pa; cs = na; coff = gc;
+      } else {
+        src = pb; cs = nb; coff = gc - na;
+      }
+      const bool activate = !second;
+      float4 fa = make_float4(1.f, 1.f, 1.f, 1.f);
+      float4 fc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (activate) {
+        fa = *reinterpret_cast<const float4*>(aff_a + gc);
+        fc = *reinterpret_cast<const float4*>(aff_c + gc);
+      }
+      unsigned char* hi_plane = a_buf + sa * A_STAGE + q * PLANE;
+      // Two patch rows a step, so six loads are in flight per thread.
+      for (int py0 = 0; py0 < PH; py0 += 2) {
+        float4 raw[2][NPX];
+        bool ok[2][NPX];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int gy = y0 + py0 + r - 1;  // the halo
+#pragma unroll
+          for (int j = 0; j < NPX; ++j) {
+            const int px = pc + kPixLanes * j;
+            const int gx = x0 + px - 1;  // the halo
+            ok[r][j] = px < PW && gy >= 0 && gy < H && gx >= 0 && gx < W;
+            raw[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (ok[r][j]) {
+              raw[r][j] = __ldg(reinterpret_cast<const float4*>(
+                  src + (((size_t)b * H + gy) * W + gx) * cs + coff));
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int j = 0; j < NPX; ++j) {
+            const int px = pc + kPixLanes * j;
+            if (px >= PW) continue;
+            float4 v = raw[r][j];
+            if (activate) {
+              v.x = act(v.x, fa.x, fc.x);
+              v.y = act(v.y, fa.y, fc.y);
+              v.z = act(v.z, fa.z, fc.z);
+              v.w = act(v.w, fa.w, fc.w);
+            }
+            if (!ok[r][j]) v = make_float4(0.f, 0.f, 0.f, 0.f);
+            float4 hi, lo;
+            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+            hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
+            hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
+            unsigned char* dst = hi_plane + ((py0 + r) * PW + px) * 16;
+            *reinterpret_cast<float4*>(dst) = hi;
+            *reinterpret_cast<float4*>(dst + A_HALF) = lo;
+          }
+        }
+      }
+      // Make the generic-proxy stores visible to wgmma's async-proxy reads.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full_a + 8 * sa);
+    }
+  }
+}
+
+template <bool HEAD>
+cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float* a,
+                   const float* c, const float* x2a, int c2a, const float* x2b, int c2b,
+                   const float* wpack, const float* bias, const float* bias2,
+                   const float* res, const float* head_pack, const float* head_bias,
+                   float* out, int B, int H, int W, cudaStream_t stream) {
+  auto kern = conv_tc_kernel<HEAD>;
+  constexpr int smem = smem_bytes<HEAD>();
+  // The opt-in to more than 48 KB of dynamic shared memory holds for the life
+  // of the process: set it at this kernel's first launch on each device.
+  constexpr int kMaxDevices = 64;
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) opted_in[dev] = true;
+  }
+  dim3 grid((W + TWX - 1) / TWX, (H + TR - 1) / TR, B);
+  kern<<<grid, kThreads, smem, stream>>>(xa, ca, xb, cb, a, c, x2a, c2a, x2b, c2b, wpack, bias,
+                                         bias2, res, head_pack, head_bias, out, H, W);
+  return cudaGetLastError();
+}
+
+// Positions in the packed tensor-core weight list (TC_PACK_KEYS in hr_tail.py).
+enum { P_F1_W1, P_F1_W2_PW, P_F2_W1, P_F2_W2, P_HEAD_W, N_PACKS };
+
+}  // namespace tc
+
 }  // namespace
 
-// sr [B,H,W,ca], dem [B,H,W,cb]; weights: N_WEIGHTS device pointers in
+// Direct route. sr [B,H,W,ca], dem [B,H,W,cb]; weights: N_WEIGHTS device pointers in
 // WEIGHT_KEYS order; buf_p and buf_y are [B,H,W,cm] scratch; out [B,H,W,ch].
 extern "C" int hr_tail_launch(const float* sr, const float* dem, int B, int H,
                               int W, int ca, int cb, int cm, int ch,
@@ -285,5 +872,42 @@ extern "C" int hr_tail_launch(const float* sr, const float* dem, int B, int H,
   // out = head(y2)
   err = launch_conv1x1(buf_p, cm, nullptr, 0, wt[HEAD_W], wt[HEAD_B], out, npix,
                        ch, stream);
+  return (int)err;
+}
+
+// Tensor-core route: the same chain, every convolution through
+// tc::conv_tc_kernel. Needs cm == 128, ch == 16, ca % 4 == 0, cb % 4 == 0 and
+// (ca + cb) % 16 == 0 (the wrapper checks). weights as above (the affines and
+// biases are read from it); packs: tc::N_PACKS device pointers to the hi/lo
+// weight slabs in TC_PACK_KEYS order.
+extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
+                                 int W, int ca, int cb, const void* const* weights,
+                                 const void* const* packs, float* buf_p,
+                                 float* buf_y, float* out, void* stream_ptr) {
+  const float* const* wt = reinterpret_cast<const float* const*>(weights);
+  const float* const* pk = reinterpret_cast<const float* const*>(packs);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  constexpr int CM = tc::N;
+  const float* none = nullptr;
+  cudaError_t err;
+  // y = conv1(relu(bn1 x))
+  err = tc::launch<false>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
+                                pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y, B, H,
+                                W, stream);
+  if (err != cudaSuccess) return (int)err;
+  // y1 = conv2(relu(bn2 y)) + proj(x): the projection is ten more chunks of K
+  err = tc::launch<false>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
+                                pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
+                                buf_p, B, H, W, stream);
+  if (err != cudaSuccess) return (int)err;
+  // z = conv1(relu(bn1 y1))
+  err = tc::launch<false>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
+                                pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y, B, H,
+                                W, stream);
+  if (err != cudaSuccess) return (int)err;
+  // out = head(conv2(relu(bn2 z)) + y1): y2 never reaches device memory
+  err = tc::launch<true>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
+                                      pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
+                                      wt[HEAD_B], out, B, H, W, stream);
   return (int)err;
 }

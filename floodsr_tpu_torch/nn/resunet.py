@@ -262,7 +262,7 @@ class ResUNet(nn.Module):
             cin = hr_width
         self.fuse = nn.ModuleList(fuse)
         self.head = Conv(1, 1, hr_width, s2d * s2d)
-        self._tail_pack = None  # (weights key, packed hr_tail weights)
+        self._tail_pack = None  # (weights key, hr_tail weights, tensor-core pack or None)
 
     # -- trunk --------------------------------------------------------------
 
@@ -336,26 +336,31 @@ class ResUNet(nn.Module):
         if hr_tail_eligible(self):
             from floodsr_tpu_torch.ops.kernels.hr_tail import (
                 hr_tail,
+                pack_hr_tail_tc,
                 pack_hr_tail_weights,
+                tc_eligible,
             )
 
             # Pack (fold BN, reorder) once per set of weights, not per call:
             # the key changes when a tensor is replaced (``.to``) or written
-            # in place (``load_state_dict`` bumps ``_version``).
+            # in place (``load_state_dict`` bumps ``_version``). At the widths
+            # the tensor-core kernels take, their hi/lo weight pack is built
+            # with it.
             tensors = [*self.fuse.parameters(), *self.fuse.buffers(), *self.head.parameters()]
             key = tuple((t.data_ptr(), t._version) for t in tensors)
             if self._tail_pack is None or self._tail_pack[0] != key:
-                self._tail_pack = (
-                    key,
-                    pack_hr_tail_weights(
-                        self.fuse[0], self.fuse[1], self.head, bn_eps=cfg.bn_eps
-                    ),
+                weights = pack_hr_tail_weights(
+                    self.fuse[0], self.fuse[1], self.head, bn_eps=cfg.bn_eps
                 )
-            weights = self._tail_pack[1]
+                cm, ch = int(self.head.w.shape[1]), int(self.head.w.shape[0])
+                eligible = tc_eligible(int(x.shape[-1]), int(dem_feat.shape[1]), cm, ch)
+                self._tail_pack = (key, weights, pack_hr_tail_tc(weights) if eligible else None)
+            _, weights, tc_pack = self._tail_pack
             out = hr_tail(
                 x.contiguous(),
                 dem_feat.permute(0, 2, 3, 1).contiguous(),
                 *weights,
+                tc_pack=tc_pack,
             )
         else:
             y = torch.cat([x.permute(0, 3, 1, 2), dem_feat], dim=1)

@@ -20,8 +20,19 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     for mod in _modules().values():
         mod.launches = 0
+        for route in getattr(mod, "route_launches", {}):
+            mod.route_launches[route] = 0
 
 
 def launch_counts() -> dict[str, int]:
     """``{kernel name: launches since the last reset}``."""
     return {name: int(mod.launches) for name, mod in _modules().items()}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """``{kernel name: {route: launches since the last reset}}`` for the
+    kernels with more than one route on the card."""
+    return {
+        name: dict(mod.route_launches)
+        for name, mod in _modules().items() if hasattr(mod, "route_launches")
+    }

@@ -3,7 +3,10 @@
 Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library with a plain C interface under ``floodsr_tpu_torch/_build/`` (listed
 in ``.gitignore``), loaded with ``ctypes``. A library is rebuilt when its
-source is newer. A missing ``nvcc`` or a failed build raises: there is no
+source, or a file under ``csrc/`` that the source includes, is newer. The
+kernels need the CUDA runtime alone: no tensor maps (the bulk copies are the
+one-dimensional ``cp.async.bulk``), so nothing links ``-lcuda``, and no
+CUTLASS header. A missing ``nvcc`` or a failed build raises: there is no
 fallback. This module is imported only by the kernel wrappers when they
 launch on a CUDA tensor, so the CPU path never touches it.
 """
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +52,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes, directly or not."""
+    found: list[Path] = []
+    todo = [SRC_DIR / f"{name}.cu"]
+    while todo:
+        fp = todo.pop()
+        if fp in found or not fp.exists() or SRC_DIR not in fp.parents:
+            continue
+        found.append(fp)
+        todo += [(fp.parent / inc).resolve() for inc in _INCLUDE.findall(fp.read_text())]
+    return found
+
+
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    src = SRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < fp.stat().st_mtime for fp in source_files(name))
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:

@@ -11,6 +11,17 @@ Source: ``floodsr_tpu_torch/csrc/hr_tail.cu`` (its header says what bounds it
 on the card and what its design does about that). :func:`hr_tail` dispatches
 a CPU tensor to :func:`hr_tail_reference`, the unfused chain with
 ``F.conv2d``; a CUDA tensor launches the hand-written kernels or raises.
+
+Two routes on the card, chosen from the channel counts alone
+(:func:`tc_eligible`): the tensor-core route (``wgmma`` implicit GEMM in
+3xTF32 with f32 accumulation; the flagship widths) and the direct route (f32
+FMA on the CUDA cores; any widths). Each counts its calls in
+:data:`route_launches`. The tensor-core route reads its weights from a
+kernel-side pack (:func:`pack_hr_tail_tc`: hi/lo TF32 halves in the layout of
+the ``wgmma`` B operand), which the caller builds once per set of weights
+and hands in; the wrapper never builds it.
+:func:`split_tf32` and :func:`hr_tail_reference_3xtf32` state that route's
+arithmetic in plain torch, for the tests; nothing on the main path calls them.
 """
 
 from __future__ import annotations
@@ -28,9 +39,21 @@ WEIGHT_KEYS = (
     "head_w", "head_b",
 )
 
+#: The tensor-core route's pack, in the order the CUDA launcher indexes it:
+#: each entry names the weight matrices whose slabs one launch streams. The
+#: projection shortcut rides in f1.conv2's launch as ten more chunks of K.
+TC_PACK_KEYS = (("f1_w1",), ("f1_w2", "f1_pw"), ("f2_w1",), ("f2_w2",), ("head_w",))
+
+#: Widths the tensor-core kernels are instantiated for, and the input-channel
+#: chunk of one staged patch.
+TC_CM, TC_CH, TC_CK = 128, 16, 16
+
 #: hr_tail calls that launched the kernels since the last reset
-#: (ops.kernels.reset_launch_counts); each call is six kernel launches
+#: (ops.kernels.reset_launch_counts); each call is four kernel launches on
+#: the tensor-core route and six on the direct one
 launches = 0
+#: the same calls by route
+route_launches = {"tensor": 0, "direct": 0}
 
 
 def pack_hr_tail_weights(f1, f2, head, *, bn_eps: float) -> list[torch.Tensor]:
@@ -85,6 +108,96 @@ def hr_tail_reference(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Te
     return _conv(y2, w["head_w"], w["head_b"]).permute(0, 2, 3, 1)
 
 
+def tc_eligible(ca: int, cb: int, cm: int, ch: int) -> bool:
+    """Whether the tensor-core kernels take these channel counts."""
+    return (
+        cm == TC_CM and ch == TC_CH and ca > 0 and ca % 4 == 0 and cb % 4 == 0
+        and (ca + cb) % TC_CK == 0
+    )
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, both f32.
+
+    ``tf32`` rounds onto a 10-bit mantissa, nearest with ties away from zero,
+    as the kernel's ``cvt.rna.tf32.f32`` does: half an ulp is added to the
+    magnitude's bits and the low 13 bits are cleared. ``x - hi`` is exact in
+    f32, so ``hi + lo`` carries 21-22 mantissa bits of ``x``.
+    """
+
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & -0x2000
+        rounded = (mag | (bits & -0x80000000)).view(torch.float32)
+        return torch.where(torch.isfinite(v), rounded, v)
+
+    x = x.to(torch.float32)
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _tc_slabs(m: torch.Tensor) -> torch.Tensor:
+    """``[taps..., Cin, Cout]`` → ``[Cin/16 * taps, 2, 4, Cout, 4]`` hi/lo slabs."""
+    cin, cout = int(m.shape[-2]), int(m.shape[-1])
+    if cin % TC_CK:
+        raise ValueError(f"{cin} input channels are not a multiple of {TC_CK}")
+    halves = torch.stack(split_tf32(m.reshape(-1, cin, cout)))  # [2, taps, cin, cout]
+    taps = halves.shape[1]
+    slabs = halves.reshape(2, taps, cin // TC_CK, TC_CK // 4, 4, cout)
+    return slabs.permute(2, 1, 0, 3, 5, 4).reshape(-1, 2, TC_CK // 4, cout, 4)
+
+
+def pack_hr_tail_tc(weights) -> list[torch.Tensor]:
+    """The tensor-core route's weight pack, from the :data:`WEIGHT_KEYS` list.
+
+    One tensor per :data:`TC_PACK_KEYS` entry, ``[slabs, 2, 4, Cout, 4]`` f32:
+    per 16-channel chunk and tap of a weight matrix one contiguous slab
+    (chunk-major), the hi halves then the lo halves (:func:`split_tf32`), each
+    as ``[channel quad][Cout][4 channels]``, which is the no-swizzle K-major
+    layout ``wgmma`` reads its B operand in. An entry of two matrices holds the
+    first one's slabs, then the second's. Build it once per set of weights, not
+    per call.
+    """
+    w = dict(zip(WEIGHT_KEYS, weights))
+    return [
+        torch.cat([_tc_slabs(w[key]) for key in keys]).contiguous() for keys in TC_PACK_KEYS
+    ]
+
+
+def hr_tail_reference_3xtf32(
+    sr: torch.Tensor, dem: torch.Tensor, *weights, products: int = 3,
+    accumulate: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The chain with every product formed from TF32 halves, as the kernel does.
+
+    ``products=3``: ``lo*Whi + hi*Wlo + hi*Whi`` (3xTF32); ``products=1``:
+    ``hi*Whi`` alone (plain TF32). A product of two halves is exact in f32;
+    the sums run in ``accumulate`` (f64 isolates the split's error from the
+    summation's). For the tests: nothing on the main path calls this.
+    """
+    if products not in (1, 3):
+        raise ValueError(f"products must be 1 or 3; got {products}")
+    w = dict(zip(WEIGHT_KEYS, weights))
+
+    def conv(x, wk, bk):
+        x_hi, x_lo = (t.to(accumulate) for t in split_tf32(x))
+        w_hi, w_lo = (t.to(accumulate) for t in split_tf32(w[wk]))
+        zero = torch.zeros_like(w[bk], dtype=accumulate)
+        y = _conv(x_hi, w_hi, zero)
+        if products == 3:
+            y = (_conv(x_lo, w_hi, zero) + _conv(x_hi, w_lo, zero)) + y
+        return y.to(torch.float32) + w[bk][None, :, None, None]
+
+    x = torch.cat([sr, dem], dim=-1).permute(0, 3, 1, 2).to(torch.float32)
+    y = conv(_affine_relu(x, w["f1_a1"], w["f1_c1"]), "f1_w1", "f1_b1")
+    y = conv(_affine_relu(y, w["f1_a2"], w["f1_c2"]), "f1_w2", "f1_b2")
+    y1 = y + conv(x, "f1_pw", "f1_pb")
+    y = conv(_affine_relu(y1, w["f2_a1"], w["f2_c1"]), "f2_w1", "f2_b1")
+    y = conv(_affine_relu(y, w["f2_a2"], w["f2_c2"]), "f2_w2", "f2_b2")
+    y2 = y + y1
+    return conv(y2, "head_w", "head_b").permute(0, 2, 3, 1)
+
+
 def _check_weights(weights, cin: int, cm: int, ch: int, device) -> None:
     if len(weights) != len(WEIGHT_KEYS):
         raise ValueError(f"expected {len(WEIGHT_KEYS)} weights; got {len(weights)}")
@@ -110,24 +223,20 @@ def _lib():
     from floodsr_tpu_torch.ops.kernels import _build
 
     lib = _build.load("hr_tail")
-    fn = lib.hr_tail_launch
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-    return fn
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+        ("hr_tail_launch", [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
+        ("hr_tail_tc_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
+    ):
+        fn = getattr(lib, name)
+        if fn.restype is not ctypes.c_int or not fn.argtypes:
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+    return lib
 
 
-def hr_tail_cuda(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Tensor:
-    """Launch the hand-written kernels: NHWC f32 contiguous CUDA tensors."""
-    global launches
-    from floodsr_tpu_torch.ops.kernels import _build
-
+def _check_inputs(sr, dem, weights) -> tuple[int, int, int, int, int, int, int]:
+    """Raise on what the kernels do not take; ``(b, h, w, ca, cb, cm, ch)``."""
     for name, t in (("sr", sr), ("dem", dem)):
         if t.device.type != "cuda":
             raise ValueError(f"hr_tail_cuda needs CUDA tensors; {name} is on {t.device}")
@@ -143,34 +252,112 @@ def hr_tail_cuda(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Tensor:
         )
     b, h, w, ca = (int(v) for v in sr.shape)
     cb = int(dem.shape[3])
+    if len(weights) != len(WEIGHT_KEYS):
+        raise ValueError(f"expected {len(WEIGHT_KEYS)} weights; got {len(weights)}")
     cm = int(weights[WEIGHT_KEYS.index("f1_b1")].shape[0])
     ch = int(weights[WEIGHT_KEYS.index("head_b")].shape[0])
     _check_weights(weights, ca + cb, cm, ch, sr.device)
     if b * h * w * max(ca + cb, cm) >= 2**31 or b * ((cm + 31) // 32) > 65535:
         raise ValueError(f"batch {tuple(sr.shape)} exceeds the kernel's index range")
-    if (h + 7) // 8 > 65535:
+    if (h + 3) // 4 > 65535:
         raise ValueError(f"height {h} exceeds the kernel's grid")
+    return b, h, w, ca, cb, cm, ch
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def hr_tail_cuda(
+    sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None, route: "str | None" = None
+) -> torch.Tensor:
+    """Launch the hand-written kernels: NHWC f32 contiguous CUDA tensors.
+
+    The widths alone choose the route: tensor cores where :func:`tc_eligible`,
+    else the direct kernels. The tensor-core route needs ``tc_pack``
+    (:func:`pack_hr_tail_tc` of the same weights, built once per set of
+    weights). ``route`` ("tensor" or "direct") forces one, for the tests and
+    for timing the two side by side; "tensor" raises on widths it does not take.
+    """
+    global launches
+    from floodsr_tpu_torch.ops.kernels import _build
+
+    b, h, w, ca, cb, cm, ch = _check_inputs(sr, dem, weights)
+    eligible = tc_eligible(ca, cb, cm, ch)
+    if route is None:
+        route = "tensor" if eligible else "direct"
+    if route not in route_launches:
+        raise ValueError(f"route must be one of {sorted(route_launches)}; got {route!r}")
+    if route == "tensor":
+        if not eligible:
+            raise ValueError(
+                f"the tensor-core route takes Cm={TC_CM}, Ch={TC_CH}, Ca and Cb multiples "
+                f"of 4 and Ca+Cb a multiple of {TC_CK}; got Ca={ca} Cb={cb} Cm={cm} Ch={ch}"
+            )
+        if tc_pack is None:
+            raise ValueError(
+                "the tensor-core route needs tc_pack=pack_hr_tail_tc(weights), "
+                "built once per set of weights"
+            )
+        want = dict(zip(WEIGHT_KEYS, weights))
+        if len(tc_pack) != len(TC_PACK_KEYS):
+            raise ValueError(f"expected {len(TC_PACK_KEYS)} packed weights; got {len(tc_pack)}")
+        for keys, t in zip(TC_PACK_KEYS, tc_pack):
+            name = "+".join(keys)
+            cout = int(want[keys[0]].shape[-1])
+            slabs = sum(want[key].numel() // (TC_CK * cout) for key in keys)
+            shape = (slabs, 2, TC_CK // 4, cout, 4)
+            if (
+                tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != sr.device
+            ):
+                raise ValueError(
+                    f"packed weight {name} must be float32 {shape}, contiguous, on {sr.device}; "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                )
+        # 16-byte bulk copies of the slabs; float4 loads of the inputs and the
+        # affines, float2 loads of the biases
+        aligned = [("sr", sr), ("dem", dem)]
+        aligned += [("packed weight " + "+".join(k), t) for k, t in zip(TC_PACK_KEYS, tc_pack)]
+        aligned += [(f"weight {k}", t) for k, t in zip(WEIGHT_KEYS, weights) if t.ndim == 1]
+        for name, t in aligned:
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"{name} must start on a 16-byte boundary for the tensor-core route"
+                )
 
     buf_p = torch.empty((b, h, w, cm), dtype=torch.float32, device=sr.device)
     buf_y = torch.empty_like(buf_p)
     out = torch.empty((b, h, w, ch), dtype=torch.float32, device=sr.device)
-    ptrs = (ctypes.c_void_p * len(weights))(*[t.data_ptr() for t in weights])
-    fn = _lib()
+    lib = _lib()
+    wptrs = ctypes.cast(_pointers(weights), ctypes.c_void_p)
+    stream = _build.current_stream_ptr(sr.device)
     with torch.cuda.device(sr.device):
-        rc = fn(
-            sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch,
-            ctypes.cast(ptrs, ctypes.c_void_p), buf_p.data_ptr(), buf_y.data_ptr(),
-            out.data_ptr(), _build.current_stream_ptr(sr.device),
-        )
-    _build.check(rc, "hr_tail")
+        if route == "tensor":
+            rc = lib.hr_tail_tc_launch(
+                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
+                ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
+                buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
+            )
+        else:
+            rc = lib.hr_tail_launch(
+                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
+                buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
+            )
+    _build.check(rc, f"hr_tail ({route} route)")
     launches += 1
+    route_launches[route] += 1
     return out
 
 
-def hr_tail(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Tensor:
-    """Fused tail ``[B,H,W,Ca] + [B,H,W,Cb] → [B,H,W,Ch]``: kernel on CUDA, plain on CPU."""
+def hr_tail(sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None) -> torch.Tensor:
+    """Fused tail ``[B,H,W,Ca] + [B,H,W,Cb] → [B,H,W,Ch]``: kernel on CUDA, plain on CPU.
+
+    ``tc_pack`` (:func:`pack_hr_tail_tc`) is read only by the tensor-core
+    route on the card, which needs it.
+    """
     if sr.device.type == "cuda":
-        return hr_tail_cuda(sr, dem, *weights)
+        return hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack)
     if sr.device.type != "cpu":
         raise ValueError(f"unsupported device {sr.device}")
     return hr_tail_reference(sr, dem, *weights)

@@ -37,32 +37,85 @@ def _tiles(seed, n, h, w):
     return t
 
 
-# 128x128 takes the float4 path; 33x31 (a count not divisible by 4) the
-# scalar one.
-@pytest.mark.parametrize("h,w", [(128, 128), (33, 31)])
+# 128x128 and 64x96 split into eight aligned slices and take the one-read
+# (cluster) route; 33x31 (a count not divisible by 4) streams with scalar
+# loads, 30x30 (divisible by 4, not by 32) with float4 loads.
+@pytest.mark.parametrize(
+    "h,w,route", [(128, 128, "one_read"), (33, 31, "stream"), (64, 96, "one_read"), (30, 30, "stream")]
+)
 @pytest.mark.parametrize("pct", [95.0, 100.0])
-def test_tile_stats_kernel_equals_plain_version(cuda_device, h, w, pct):
+def test_tile_stats_kernel_equals_plain_version(cuda_device, h, w, route, pct):
     dem = torch.from_numpy(_tiles(4, 6, h, w)).to(cuda_device)
     ts.launches = 0
+    ts.route_launches.update(one_read=0, stream=0)
     got = ts.tile_stats(dem, pct)
     torch.cuda.synchronize()
     assert ts.launches == 1
-    # Same f32 bisection in the same order: bit for bit.
+    assert ts.route_launches == {"one_read": int(route == "one_read"), "stream": int(route == "stream")}
+    # The bisection replayed on the exact order statistics: bit for bit.
     assert torch.equal(got, ts.tile_stats_reference(dem, pct))
+
+
+@pytest.mark.parametrize("pct", [50.0, 95.0, 99.9, 100.0])
+def test_tile_stats_one_read_route_at_the_scene_tile_size(cuda_device, pct):
+    # 512x512: an eighth of a tile is 128 KiB of a block's shared memory. A
+    # tile with NaNs and one whose values span the whole exponent range
+    # (three select passes) ride along.
+    t = _tiles(7, 7, 512, 512)
+    t[4, ::7, ::5] = np.nan
+    t[5] = np.exp(np.random.default_rng(8).uniform(-40.0, 40.0, (512, 512))).astype(np.float32)
+    t[6] = np.float32(0.0)
+    dem = torch.from_numpy(t).to(cuda_device)
+    ts.route_launches.update(one_read=0, stream=0)
+    for _ in range(2):  # twice: a race would not repeat
+        got = ts.tile_stats(dem, pct)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ts.tile_stats_reference(dem, pct))
+    assert ts.route_launches == {"one_read": 2, "stream": 0}
+
+
+@pytest.mark.parametrize("n", [32, 25, 40])
+def test_tile_stats_one_read_route_at_the_scene_batch_sizes(cuda_device, n):
+    # The scene's batches are 32 tiles of 512x512, then 25: 256 and 200 blocks
+    # on the card's SMs, one block each, so the clusters run in more than one
+    # wave; 40 tiles make a third. Every tile is held against the plain version.
+    t = _tiles(11, n, 512, 512)
+    t[n - 1] = t[0][::-1]  # the last cluster of the last wave: a tile of its own
+    dem = torch.from_numpy(t).to(cuda_device)
+    want = ts.tile_stats_reference(dem, 95.0)
+    ts.route_launches.update(one_read=0, stream=0)
+    for _ in range(2):  # twice: a race would not repeat
+        got = ts.tile_stats(dem, 95.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert ts.route_launches == {"one_read": 2, "stream": 0}
+
+
+def test_tile_stats_streaming_route_on_a_tile_too_large_for_one_read(cuda_device):
+    # 640x640 f32 is 1.56 MiB: an eighth of it does not fit a block's shared memory.
+    dem = torch.from_numpy(_tiles(9, 4, 640, 640)).to(cuda_device)
+    assert not ts.one_read_ok(640 * 640, dem.data_ptr())
+    ts.route_launches.update(one_read=0, stream=0)
+    got = ts.tile_stats(dem, 95.0)
+    torch.cuda.synchronize()
+    assert ts.route_launches == {"one_read": 0, "stream": 1}
+    assert torch.equal(got, ts.tile_stats_reference(dem, 95.0))
 
 
 def test_tile_stats_kernel_on_a_view_off_16_byte_alignment(cuda_device):
     # A contiguous view one float into its storage: the count is a multiple
-    # of 4, but the tiles do not start on a 16-byte boundary, so the kernel
-    # must take its scalar loads.
+    # of 32, but the tiles do not start on a 16-byte boundary, so the kernel
+    # must stream with its scalar loads.
     n, h, w = 6, 32, 32
     flat = torch.from_numpy(_tiles(5, n, h, w).reshape(-1)).to(cuda_device)
     store = torch.empty(flat.numel() + 1, device=cuda_device)
     store[1:] = flat
     dem = store[1:].view(n, h, w)
     assert dem.is_contiguous() and dem.data_ptr() % 16 != 0
+    ts.route_launches.update(one_read=0, stream=0)
     got = ts.tile_stats(dem, 95.0)
     torch.cuda.synchronize()
+    assert ts.route_launches == {"one_read": 0, "stream": 1}
     assert torch.equal(got, ts.tile_stats_reference(dem, 95.0))
 
 
@@ -98,28 +151,91 @@ def _tail_weights(ca, cb, cm, ch, device, seed=0):
     return out
 
 
-# The flagship's channel widths (128 + 32 → 128 → 16) and a narrow config;
-# heights and widths that are not multiples of the kernel's 8x32 tile, so
-# the ragged edges and the image-edge padding are exercised.
+def _tail_inputs(b, h, w, ca, cb, device, seed=1, scale=1.0):
+    rng = np.random.default_rng(seed)
+    sr = np.abs(rng.normal(0, scale, (b, h, w, ca))).astype(np.float32)
+    dem = np.abs(rng.normal(0, scale, (b, h, w, cb))).astype(np.float32)
+    return torch.from_numpy(sr).to(device), torch.from_numpy(dem).to(device)
+
+
+# The flagship's channel widths (128 + 32 → 128 → 16) take the tensor-core
+# route, the narrow config the direct one; heights and widths that are not
+# multiples of either route's tile (4x64 and 8x32), so the ragged edges and
+# the image-edge padding are exercised; one full 128x128 tile.
 @pytest.mark.parametrize(
-    "b,h,w,ca,cb,cm,ch",
-    [(2, 20, 48, 128, 32, 128, 16), (1, 13, 70, 16, 8, 16, 4)],
+    "b,h,w,ca,cb,cm,ch,route",
+    [
+        (2, 20, 48, 128, 32, 128, 16, "tensor"),
+        (1, 13, 70, 16, 8, 16, 4, "direct"),
+        (1, 128, 128, 128, 32, 128, 16, "tensor"),
+        (3, 33, 131, 128, 32, 128, 16, "tensor"),
+        (1, 5, 3, 64, 16, 128, 16, "tensor"),
+        # a 16-channel chunk that holds channels of both inputs
+        (1, 9, 70, 68, 12, 128, 16, "tensor"),
+    ],
 )
-def test_hr_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cb, cm, ch):
-    rng = np.random.default_rng(1)
-    sr = torch.from_numpy(np.abs(rng.normal(0, 1, (b, h, w, ca))).astype(np.float32)).to(cuda_device)
-    dem = torch.from_numpy(np.abs(rng.normal(0, 1, (b, h, w, cb))).astype(np.float32)).to(cuda_device)
+def test_hr_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cb, cm, ch, route):
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device)
     weights = _tail_weights(ca, cb, cm, ch, cuda_device)
-    ht.launches = 0
-    got = ht.hr_tail(sr, dem, *weights)
     want = ht.hr_tail_reference(sr, dem, *weights)
+    pack = ht.pack_hr_tail_tc(weights) if route == "tensor" else None
+    ht.launches = 0
+    ht.route_launches.update(tensor=0, direct=0)
+    for _ in range(2):  # twice: a missing fence gives wrong sums only sometimes
+        got = ht.hr_tail(sr, dem, *weights, tc_pack=pack)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (b, h, w, ch)
+        # f32 FMAs (direct) or 3xTF32 products summed in f32 (tensor cores), in
+        # another order than cuDNN's (TF32 off): f32-rounding level per layer
+        # through five convolutions, held at 1e-4 of the output's range.
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+    assert ht.launches == 2
+    assert ht.route_launches == {"tensor": 2 * (route == "tensor"), "direct": 2 * (route == "direct")}
+
+
+def test_hr_tail_both_routes_agree_at_the_flagship_widths(cuda_device):
+    # The direct route takes any widths; at the flagship's it must agree with
+    # the tensor-core route and the plain version alike. A large BN offset
+    # makes relu(c) != 0, which would leak into the edge rows if the padding
+    # were applied before the affine.
+    b, h, w, ca, cb, cm, ch = 2, 24, 72, 128, 32, 128, 16
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=3)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=2)
+    for key in ("f1_c1", "f1_c2", "f2_c1", "f2_c2"):
+        weights[ht.WEIGHT_KEYS.index(key)].fill_(2.0)
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    pack = ht.pack_hr_tail_tc(weights)
+    ht.route_launches.update(tensor=0, direct=0)
+    tensor = ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="tensor")
+    direct = ht.hr_tail_cuda(sr, dem, *weights, route="direct")
+    assert ht.route_launches == {"tensor": 1, "direct": 1}
     torch.cuda.synchronize()
-    assert ht.launches == 1
-    assert got.shape == want.shape == (b, h, w, ch)
-    # f32 FMAs in another order than cuDNN's (TF32 off): a few ulps per
-    # layer through five convolutions, held at 1e-4 of the output's range.
+    scale = float(want.abs().max())
+    assert float((tensor - want).abs().max()) <= 1e-4 * scale
+    assert float((direct - want).abs().max()) <= 1e-4 * scale
+    # the image's edge rows and columns as well as its inside
+    for edge in (np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+        assert float((tensor[edge] - want[edge]).abs().max()) <= 1e-4 * scale
+
+
+def test_hr_tail_tensor_route_holds_f32_level_at_large_features(cuda_device):
+    # Features of order 1e4, the flagship's magnitude: a single TF32 product
+    # would leave about three decimal digits; the three split products stay at
+    # f32-rounding level. The tensor core's f32 accumulator chops where cuDNN's
+    # FMAs round, over 540 accumulations a convolution: 1.5e-5 of the range
+    # was measured on an H100; held at 3e-5, a third of the gate.
+    b, h, w, ca, cb, cm, ch = 1, 32, 64, 128, 32, 128, 16
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=5, scale=1e4)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=4)
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    ht.route_launches.update(tensor=0, direct=0)
+    got = ht.hr_tail(sr, dem, *weights, tc_pack=ht.pack_hr_tail_tc(weights))
+    assert ht.route_launches == {"tensor": 1, "direct": 0}
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    assert err <= 1e-4 * float(want.abs().max())
+    assert scale > 1e4 and err <= 3e-5 * scale, (err, scale)
 
 
 def test_hr_tail_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -132,6 +248,32 @@ def test_hr_tail_kernel_rejects_what_it_does_not_take(cuda_device):
         ht.hr_tail(sr, dem, *weights[:2], weights[2][:, :, :-1], *weights[3:])
     with pytest.raises(ValueError, match="must share"):
         ht.hr_tail(sr, dem[:, :4].contiguous(), *weights)
+    # the tensor-core route takes the flagship's widths only, and its pack
+    # must be the one for these weights' shapes
+    with pytest.raises(ValueError, match="tensor-core route takes"):
+        ht.hr_tail_cuda(sr, dem, *weights, route="tensor")
+    with pytest.raises(ValueError, match="route must be one of"):
+        ht.hr_tail_cuda(sr, dem, *weights, route="cudnn")
+    wide = _tail_weights(128, 32, 128, 16, cuda_device)
+    sr_w = torch.zeros(1, 8, 8, 128, device=cuda_device)
+    dem_w = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    pack = ht.pack_hr_tail_tc(wide)
+    # the wrapper never builds the pack itself
+    with pytest.raises(ValueError, match="needs tc_pack"):
+        ht.hr_tail(sr_w, dem_w, *wide)
+    with pytest.raises(ValueError, match=r"packed weight f1_w2\+f1_pw"):
+        ht.hr_tail(sr_w, dem_w, *wide, tc_pack=[pack[0], pack[1][:-1].contiguous(), *pack[2:]])
+    with pytest.raises(ValueError, match="expected 5 packed"):
+        ht.hr_tail(sr_w, dem_w, *wide, tc_pack=pack[:4])
+    # float4 loads: an input one float into its storage is refused
+    store = torch.zeros(sr_w.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ht.hr_tail(store[1:].view(sr_w.shape), dem_w, *wide, tc_pack=pack)
+    # the affines too: a per-channel vector one float into its storage
+    k = ht.WEIGHT_KEYS.index("f1_a2")
+    store = torch.ones(wide[k].numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="weight f1_a2 must start on a 16-byte boundary"):
+        ht.hr_tail(sr_w, dem_w, *wide[:k], store[1:], *wide[k + 1:], tc_pack=pack)
 
 
 def _relax_grid(seed, h, w, device):

@@ -132,9 +132,10 @@ def test_model_tail_dispatches_to_hr_tail_on_an_eligible_config(monkeypatch):
     calls = []
     original = ht.hr_tail
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         calls.append(args[0].shape)
-        return original(*args)
+        assert kwargs == {"tc_pack": None}  # narrow widths: no tensor-core pack
+        return original(*args, **kwargs)
 
     monkeypatch.setattr(ht, "hr_tail", spy)
     out = model.tail(feat, dem)
@@ -162,3 +163,221 @@ def test_wrapper_input_checks():
     assert out.shape == (1, 8, 8, cfg.hr_s2d**2)
     assert ht.launches == 0  # the plain version is no launch
 
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route's arithmetic (3xTF32) and its weight pack, in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _mantissa_low_bits(t):
+    return t.contiguous().view(torch.int32) & 0x1FFF
+
+
+def test_split_tf32_halves():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.normal(0, 1, 4000), rng.normal(0, 1e4, 4000), rng.normal(0, 1e-4, 4000),
+        [0.0, -0.0, 1.0, -1.0, 3.0e38, -3.0e38],
+    ]).astype(np.float32)
+    x = torch.from_numpy(x)
+    hi, lo = ht.split_tf32(x)
+    assert hi.dtype == lo.dtype == torch.float32
+    # hi and lo are TF32 values: the low 13 mantissa bits are zero
+    assert not _mantissa_low_bits(hi).any() and not _mantissa_low_bits(lo).any()
+    # hi + lo carries 21-22 mantissa bits of x
+    resid = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((resid <= 2.0**-21 * x.double().abs()).all())
+    assert bool(((x.double() - hi.double()).abs() <= 2.0**-11 * x.double().abs()).all())
+    # zeros and signs survive
+    zeros = ht.split_tf32(torch.tensor([0.0, -0.0]))
+    for part in zeros:
+        assert part.tolist() == [0.0, 0.0]
+    assert torch.signbit(zeros[0]).tolist() == [False, True]
+    assert bool((torch.sign(hi) == torch.sign(x)).all())
+    # inf and NaN pass through hi
+    odd = ht.split_tf32(torch.tensor([float("inf"), float("-inf"), float("nan")]))[0]
+    assert odd[0] == float("inf") and odd[1] == float("-inf") and torch.isnan(odd[2])
+
+
+def test_split_tf32_rounds_ties_away_from_zero():
+    # 1 + 2^-11 lies halfway between the TF32 neighbours 1 and 1 + 2^-10:
+    # cvt.rna takes the one further from zero (ties-to-even would take 1).
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-10 + 2.0**-11, 1.0 + 2.0**-12])
+    hi, lo = ht.split_tf32(x)
+    assert hi.tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0 + 2.0**-9, 1.0]
+    assert lo.tolist() == [-(2.0**-11), 2.0**-11, -(2.0**-11), 2.0**-12]
+
+
+def _wide_weights(ca, cb, cm, ch, seed=0):
+    rng = np.random.default_rng(seed)
+    cin = ca + cb
+    shapes = {
+        "f1_a1": (cin,), "f1_c1": (cin,), "f1_w1": (3, 3, cin, cm), "f1_b1": (cm,),
+        "f1_a2": (cm,), "f1_c2": (cm,), "f1_w2": (3, 3, cm, cm), "f1_b2": (cm,),
+        "f1_pw": (cin, cm), "f1_pb": (cm,),
+        "f2_a1": (cm,), "f2_c1": (cm,), "f2_w1": (3, 3, cm, cm), "f2_b1": (cm,),
+        "f2_a2": (cm,), "f2_c2": (cm,), "f2_w2": (3, 3, cm, cm), "f2_b2": (cm,),
+        "head_w": (cm, ch), "head_b": (ch,),
+    }
+    out = []
+    for key in ht.WEIGHT_KEYS:
+        shape = shapes[key]
+        if key.endswith(("_a1", "_a2")):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) > 1:
+            v = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        out.append(torch.from_numpy(v.astype(np.float32)))
+    return out
+
+
+def test_3xtf32_chain_stays_at_f32_level_where_one_tf32_product_does_not():
+    # A narrow width with features of order 1e4, the flagship's magnitude.
+    # Three split products hold 1e-5 of the output's range; one TF32 product
+    # (hi * Whi alone) keeps about three decimal digits and misses it, which
+    # is why the tensor-core route computes 3xTF32.
+    ca, cb, cm, ch = 16, 16, 16, 4
+    weights = _wide_weights(ca, cb, cm, ch, seed=3)
+    rng = np.random.default_rng(4)
+    sr = torch.from_numpy(np.abs(rng.normal(0, 1e4, (2, 12, 20, ca))).astype(np.float32))
+    dem = torch.from_numpy(np.abs(rng.normal(0, 1e4, (2, 12, 20, cb))).astype(np.float32))
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    scale = float(want.abs().max())
+    assert scale > 1e3
+    for accumulate in (torch.float32, torch.float64):
+        three = ht.hr_tail_reference_3xtf32(sr, dem, *weights, accumulate=accumulate)
+        assert three.shape == want.shape and three.dtype == torch.float32
+        assert float((three - want).abs().max()) <= 1e-5 * scale
+    one = ht.hr_tail_reference_3xtf32(sr, dem, *weights, products=1)
+    assert float((one - want).abs().max()) > 1e-5 * scale
+    with pytest.raises(ValueError, match="products"):
+        ht.hr_tail_reference_3xtf32(sr, dem, *weights, products=2)
+
+
+def test_tensor_core_pack_layout_and_round_trip():
+    ca, cb, cm, ch = 128, 32, 128, 16
+    cin = ca + cb
+    assert ht.tc_eligible(ca, cb, cm, ch)
+    weights = _wide_weights(ca, cb, cm, ch, seed=5)
+    w = dict(zip(ht.WEIGHT_KEYS, weights))
+    pack = ht.pack_hr_tail_tc(weights)
+    assert len(pack) == len(ht.TC_PACK_KEYS) == 5
+    # slabs: chunks x taps of each matrix; the projection rides behind f1.conv2
+    want_slabs = [cin // 16 * 9, cm // 16 * 9 + cin // 16, cm // 16 * 9, cm // 16 * 9, cm // 16]
+    for t, slabs, keys in zip(pack, want_slabs, ht.TC_PACK_KEYS):
+        cout = ch if keys == ("head_w",) else cm
+        assert tuple(t.shape) == (slabs, 2, 4, cout, 4) and t.dtype == torch.float32
+        assert t.is_contiguous()
+        assert not _mantissa_low_bits(t).any()  # every entry is a TF32 value
+
+    def entry(t, first, taps, chunk, tap, ci, co):
+        slab = t[first + chunk * taps + tap]  # [hi|lo][quad][cout][4]
+        return slab[:, ci // 4, co, ci % 4]
+
+    rng = np.random.default_rng(6)
+    for _ in range(50):
+        tap, ci, co = int(rng.integers(9)), int(rng.integers(cin)), int(rng.integers(cm))
+        value = w["f1_w1"].reshape(9, cin, cm)[tap, ci, co]
+        hi, lo = entry(pack[0], 0, 9, ci // 16, tap, ci % 16, co)
+        assert hi == ht.split_tf32(value)[0] and float(hi) + float(lo) == pytest.approx(float(value), rel=2.0**-21)
+        # the projection's slabs follow the 72 of f1.conv2
+        value = w["f1_pw"][ci, co]
+        hi, lo = entry(pack[1], (cm // 16) * 9, 1, ci // 16, 0, ci % 16, co)
+        assert float(hi) + float(lo) == pytest.approx(float(value), rel=2.0**-21)
+        ci2 = ci % cm
+        value = w["f1_w2"].reshape(9, cm, cm)[tap, ci2, co]
+        hi, lo = entry(pack[1], 0, 9, ci2 // 16, tap, ci2 % 16, co)
+        assert float(hi) + float(lo) == pytest.approx(float(value), rel=2.0**-21)
+        value = w["head_w"][ci2, co % ch]
+        hi, lo = entry(pack[4], 0, 1, ci2 // 16, 0, ci2 % 16, co % ch)
+        assert float(hi) + float(lo) == pytest.approx(float(value), rel=2.0**-21)
+
+
+@pytest.mark.parametrize(
+    "ca,cb,cm,ch,ok",
+    [
+        (128, 32, 128, 16, True), (64, 16, 128, 16, True), (16, 8, 16, 4, False),
+        (128, 32, 128, 4, False), (126, 34, 128, 16, False), (128, 24, 128, 16, False),
+        (128, 0, 128, 16, True),
+    ],
+)
+def test_tensor_core_route_takes_the_flagship_widths_only(ca, cb, cm, ch, ok):
+    assert ht.tc_eligible(ca, cb, cm, ch) is ok
+
+
+def test_model_tail_builds_the_tensor_core_pack_once_per_set_of_weights(monkeypatch):
+    # The flagship's tail widths (128 + 32 -> 128 -> 16) on a shallow trunk.
+    cfg = ResUNetConfig(
+        base_filters=32, levels=1, enc_blocks=1, dec_blocks=1, fuse_filters=32,
+        fuse_blocks=2, scale=16, lr_tile=2, hr_s2d=4,
+    )
+    model = ResUNet(cfg).eval()
+    rng = np.random.default_rng(8)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.copy_(torch.from_numpy(rng.normal(0, 0.05, tuple(prm.shape)).astype(np.float32)))
+    built = []
+    original = ht.pack_hr_tail_tc
+    monkeypatch.setattr(ht, "pack_hr_tail_tc", lambda ws: built.append(1) or original(ws))
+    passed = []
+    original_tail = ht.hr_tail
+
+    def spy(*args, tc_pack=None):
+        passed.append(tc_pack)
+        return original_tail(*args, tc_pack=tc_pack)
+
+    monkeypatch.setattr(ht, "hr_tail", spy)
+    feat = torch.from_numpy(rng.normal(0, 1, (1, 2, 2, 32)).astype(np.float32))
+    dem = torch.from_numpy(rng.uniform(0, 1, (1, 32, 32, 1)).astype(np.float32))
+    out1 = model.tail(feat, dem)
+    out2 = model.tail(feat, dem)
+    assert out1.shape == (1, 32, 32, 1) and torch.equal(out1, out2)
+    assert len(built) == 1 and passed[0] is passed[1] and len(passed[0]) == 5
+    # new weights (in-place load bumps the tensors' versions): a new pack
+    model.load_state_dict(model.state_dict())
+    model.tail(feat, dem)
+    assert len(built) == 2 and passed[2] is not passed[0]
+
+
+def test_route_counters_reset_with_the_launch_counts():
+    from floodsr_tpu_torch.ops import kernels
+
+    ht.launches = 2
+    ht.route_launches.update(tensor=1, direct=1)
+    kernels.reset_launch_counts()
+    assert ht.launches == 0 and ht.route_launches == {"tensor": 0, "direct": 0}
+    assert kernels.route_counts()["hr_tail"] == {"tensor": 0, "direct": 0}
+
+
+def test_kernel_library_is_stale_when_an_included_source_is_newer(tmp_path, monkeypatch):
+    import os
+
+    from floodsr_tpu_torch.ops.kernels import _build
+
+    src, out = tmp_path / "csrc", tmp_path / "_build"
+    src.mkdir()
+    out.mkdir()
+    (src / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (src / "a.cuh").write_text('  #  include "sub/b.cuh"\n')
+    (src / "sub").mkdir()
+    (src / "sub" / "b.cuh").write_text('#include "../a.cuh"\n#include "../../outside.cuh"\n')
+    (tmp_path / "outside.cuh").write_text("")
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    # the source, what it includes under csrc/ (directly or not), nothing else
+    assert sorted(_build.source_files("k")) == sorted([src / "k.cu", src / "a.cuh", src / "sub" / "b.cuh"])
+    assert _build._stale("k")  # no library yet
+    lib = _build.library_path("k")
+    lib.write_bytes(b"")
+    for fp in _build.source_files("k"):
+        os.utime(fp, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not _build._stale("k")
+    os.utime(src / "sub" / "b.cuh", (3000, 3000))
+    assert _build._stale("k")
+    # the kernels of this package include nothing of their own
+    monkeypatch.undo()
+    for name in ("hr_tail", "tile_stats", "relax_step"):
+        assert _build.source_files(name) == [_build.SRC_DIR / f"{name}.cu"]

@@ -94,3 +94,73 @@ def test_normalize_twins_match_jax():
     back = nt.invert_depth_log1p(torch.from_numpy(scaled), 5.0).numpy()
     np.testing.assert_allclose(back, np.asarray(invert_jax(jnp.asarray(scaled), 5.0)), atol=2e-6)
 
+
+
+def _mixed_tiles(h, w, seed=7):
+    """Terrain-like, negatives, many ties, constant, NaNs, all zero, and a
+    tile whose values span the exponent range (three select passes on the card)."""
+    rng = np.random.default_rng(seed)
+    t = (200.0 + np.cumsum(rng.normal(0.0, 0.5, (7, h, w)), axis=2)).astype(np.float32)
+    t[1] -= np.float32(t[1].mean())
+    t[2] = np.round(t[2] * 2.0) / 2.0
+    t[3] = np.float32(123.25)
+    t[4].reshape(-1)[::5] = np.nan
+    t[5] = np.float32(-3.0)
+    t[6] = np.exp(rng.uniform(-40.0, 40.0, (h, w))).astype(np.float32)
+    return t
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (33, 31), (128, 128)])
+@pytest.mark.parametrize("pct", [50.0, 95.0, 99.9, 100.0])
+def test_selection_equals_the_bisection_bit_for_bit(h, w, pct):
+    # The bisection reads the data only through count(x <= mid) >= rank + 1,
+    # which holds exactly when the rank-th smallest value is <= mid: the
+    # replay on the two order statistics is the same f32 arithmetic.
+    dem = torch.from_numpy(_mixed_tiles(h, w))
+    got = ts.tile_stats_by_selection(dem, pct)
+    want = ts.tile_stats_reference(dem, pct)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (7, 3)
+    assert torch.equal(got, want)
+    assert not torch.isnan(got).any()
+
+
+@pytest.mark.parametrize("pct", [95.0, 50.0, 99.9, 100.0])
+def test_selection_equals_jax_bisection(pct):
+    dem = _tiles()
+    got = ts.tile_stats_by_selection(torch.from_numpy(dem), pct).numpy()
+    cpu = np.stack([np.asarray(v) for v in dem_tile_stats_jax(jnp.asarray(dem), pct)], 1)
+    np.testing.assert_array_equal(got, cpu)
+
+
+def test_selection_with_the_rank_on_a_run_of_ties():
+    # Rank k falls on the last of a run of equal values, on its first, and
+    # inside it: s_k1 is the next value above in the first case only.
+    base = np.arange(64, dtype=np.float32)
+    for run_start in (60, 61, 59):  # k = floor(0.95 * 63) = 59, k1 = 60
+        tile = base.copy()
+        tile[run_start - 3 : run_start + 1] = tile[run_start]
+        dem = torch.from_numpy(np.stack([tile, tile[::-1].copy()]).reshape(2, 8, 8))
+        assert torch.equal(ts.tile_stats_by_selection(dem, 95.0), ts.tile_stats_reference(dem, 95.0))
+
+
+def test_one_read_route_rule_and_route_counts():
+    from floodsr_tpu_torch.ops import kernels
+
+    # 512x512: eight 128 KiB slices. Not a multiple of 32 elements, a slice
+    # beyond a block's shared memory, or a start off 16 bytes: the stream.
+    assert ts.one_read_ok(512 * 512, 0x7F0000000000)
+    assert ts.one_read_ok(64 * 96, 1 << 20)
+    assert not ts.one_read_ok(33 * 31, 1 << 20)
+    assert not ts.one_read_ok(30 * 30, 1 << 20)
+    assert not ts.one_read_ok(640 * 640, 1 << 20)
+    assert not ts.one_read_ok(512 * 512, (1 << 20) + 4)
+    assert (512 * 512 // ts.CLUSTER_BLOCKS) * 4 <= ts.MAX_SLICE_BYTES
+    ts.route_launches["one_read"] = 3
+    ts.launches = 3
+    kernels.reset_launch_counts()
+    assert ts.launches == 0 and ts.route_launches == {"one_read": 0, "stream": 0}
+    assert kernels.route_counts()["tile_stats"] == {"one_read": 0, "stream": 0}
+    # the plain version is no launch on either route
+    ts.tile_stats(torch.from_numpy(_tiles(seed=1)), 95.0)
+    assert kernels.launch_counts()["tile_stats"] == 0
+    assert kernels.route_counts()["tile_stats"] == {"one_read": 0, "stream": 0}
