@@ -43,7 +43,26 @@ Phases (any failure raises and exits non-zero; none is caught):
     for bit;
 11. ``tohr`` on ``ResUNet_16x_DEM`` with ``input_kind="wse"`` on a synth case
     (WSE = DEM at LR + depth) against the depth-input run;
-12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+12. stream — six 4096² flagship scenes over three DEM files (each DEM used by
+    two scenes that are not neighbours): six single ``tohr`` calls, then one
+    ``tohr_many`` over the same jobs. The stream's rasters equal the single
+    calls' bit for bit; three DEM decodes in all (one inside ``run``, two by
+    the prefetch thread) and five ``run`` calls that found their DEM
+    resident; K1 on the tensor-core route and K2 on the one-read route in
+    every scene; one JSON line of timings;
+13. serve — ``TohrService`` + ``make_server`` on ``127.0.0.1`` (loopback only),
+    served from a thread of this process with a bearer token and a data
+    root, one 4096×4096 geometry warmed: three ``POST /v1/tohr`` (two on one
+    DEM), one ``POST /v1/tohr_many`` whose middle job names a missing file,
+    ``/v1/healthz``, ``/v1/metrics``, ``/v1/doctor``, one request without the
+    token (401) and one outside the data root (400); outputs equal
+    ``tohr``'s. A second service on ``CostGrow`` answers one 512² request
+    (K3 through the daemon; ``warmup`` returns 0). One JSON line of request
+    latencies;
+14. cli — child processes ``python3 -m floodsr_tpu_torch.cli doctor`` and
+    ``... cli tohr --in a.tif b.tif --dem dem.tif --out <dir>`` at 1024²,
+    exit code 0 each, the files equal to ``tohr``'s;
+15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -53,10 +72,14 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -396,8 +419,14 @@ class _StageLog(logging.Handler):
                 self.stages[key] = float(value.rstrip("s"))
 
 
-def scene_inputs(tmp: Path, seed: int, size: int) -> tuple[Path, Path]:
-    """A ``size``² HR DEM and a ``size/16``² LR depth from ``seed``, as GeoTIFFs."""
+def scene_inputs(
+    tmp: Path, seed: int, size: int, tag: str = "", dem: bool = True
+) -> tuple["Path | None", Path]:
+    """A ``size``² HR DEM and a ``size/16``² LR depth from ``seed``, as GeoTIFFs.
+
+    With ``dem=False`` only the depth is written (another scene over a DEM
+    that exists already): the DEM's path comes back as ``None``.
+    """
     from floodsr_tpu_torch.io import from_origin, write_raster
 
     rng = np.random.default_rng(seed)
@@ -405,7 +434,7 @@ def scene_inputs(tmp: Path, seed: int, size: int) -> tuple[Path, Path]:
     lr = size // scale
     hr_res, lr_res = 2.0, 2.0 * scale
     x0, y0 = 500000.0, 4000000.0 + size * hr_res
-    dem = (
+    dem_arr = (
         300.0
         + np.cumsum(rng.normal(0.0, 0.3, (size, size)), axis=1)
         + np.linspace(0.0, 60.0, size)[:, None]
@@ -414,15 +443,16 @@ def scene_inputs(tmp: Path, seed: int, size: int) -> tuple[Path, Path]:
 
     def profile(shape, res):
         return {
-            "driver": "GTiff", "height": shape[0], "width": shape[1], "count": 1,
+            "height": shape[0], "width": shape[1], "count": 1,
             "dtype": "float32", "crs": "EPSG:32633", "nodata": -9999.0,
             "transform": from_origin(x0, y0, res, res), "compress": "LZW",
         }
 
-    dem_fp, depth_fp = tmp / "dem.tif", tmp / "depth.tif"
-    write_raster(dem_fp, dem, profile(dem.shape, hr_res))
+    dem_fp, depth_fp = tmp / f"dem{tag}.tif", tmp / f"depth{tag}.tif"
+    if dem:
+        write_raster(dem_fp, dem_arr, profile(dem_arr.shape, hr_res))
     write_raster(depth_fp, depth, profile(depth.shape, lr_res))
-    return dem_fp, depth_fp
+    return (dem_fp if dem else None), depth_fp
 
 
 # Kernel-name fragments of each hand-written kernel, for its share of the
@@ -956,6 +986,365 @@ def phase_resunet_wse() -> None:
         raise AssertionError(f"WSE input differs from depth input by {err} m")
 
 
+# ---------------------------------------------------------------------------
+# the path that serves: a stream through one worker, the daemon, the CLI
+# ---------------------------------------------------------------------------
+
+# Per 4096² flagship scene (121 feathered tiles): K1 calls and K2 launches.
+SCENE_K1_CALLS, SCENE_K2_LAUNCHES = 16, 4
+# The DEM of each of the stream's six scenes: each DEM twice, never by
+# neighbours, so the cache (not only the prefetch) is exercised.
+STREAM_DEM_ORDER = (0, 1, 2, 0, 1, 2)
+
+
+def same_raster(a_fp, b_fp, what: str) -> None:
+    """Raise unless the two GeoTIFFs decode to equal rasters, bit for bit."""
+    from floodsr_tpu_torch.io import read_raster
+
+    a, _, _ = read_raster(a_fp)
+    b, _, _ = read_raster(b_fp)
+    if a.shape != b.shape or not np.array_equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        raise AssertionError(f"{what}: {a_fp} != {b_fp} ({bad} cells differ)")
+
+
+def scene_routes_ok(what: str, counts: dict, routes: dict, scenes: int) -> None:
+    """Raise unless ``scenes`` flagship scenes ran K1 on the tensor-core route
+    and K2 on the one-read route, every launch of them."""
+    want = {"hr_tail": ("tensor", SCENE_K1_CALLS), "tile_stats": ("one_read", SCENE_K2_LAUNCHES)}
+    for name, (route, per_scene) in want.items():
+        if counts[name] != scenes * per_scene or routes[name][route] != counts[name]:
+            raise AssertionError(
+                f"{what}: {name} launched {counts[name]} time(s), by route {routes[name]}; "
+                f"expected {scenes} x {per_scene} on {route!r}"
+            )
+
+
+def phase_stream(torch, seed: int, size: int, tmp: Path) -> dict:
+    """Six single ``tohr`` calls against one ``tohr_many`` over the same jobs."""
+    from floodsr_tpu_torch.io import native
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+    from floodsr_tpu_torch.tohr import tohr, tohr_many
+
+    t0 = time.perf_counter()
+    dems, depths = [], []
+    for k in range(len(STREAM_DEM_ORDER)):
+        dem_fp, depth_fp = scene_inputs(tmp, seed + 100 + k, size, tag=str(k), dem=k < 3)
+        depths.append(depth_fp)
+        if dem_fp is not None:
+            dems.append(dem_fp)
+    scenes = [(dems[d], depths[k]) for k, d in enumerate(STREAM_DEM_ORDER)]
+    log(f"[stream] six {size}x{size} scenes over three DEM files written in {time.perf_counter() - t0:.1f} s")
+    shared = dict(model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, device="cuda")
+
+    # (a) six calls of tohr: set-up, decode and upload paid by every scene.
+    single_fps = [tmp / f"single{k}.tif" for k in range(len(scenes))]
+    single_s, single_setup_s, single_read_s = [], [], []
+    for (dem_fp, depth_fp), out_fp in zip(scenes, single_fps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diag = tohr(depth_lr_fp=depth_fp, dem_hr_fp=dem_fp, output_fp=out_fp, **shared)
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        single_setup_s.append(single_s[-1] - float(diag["runtime_s"]))
+        single_read_s.append(float(diag["scene_timings"]["read_s"]))
+        if diag["scene_timings"]["dem_resident"]:
+            raise AssertionError("a single tohr call found its DEM resident in a new worker")
+
+    # (b) one tohr_many over the same jobs: the counts are read around it.
+    many_fps = [tmp / f"many{k}.tif" for k in range(len(scenes))]
+    jobs = [
+        {"depth_lr_fp": depth_fp, "dem_hr_fp": dem_fp, "output_fp": out_fp}
+        for (dem_fp, depth_fp), out_fp in zip(scenes, many_fps)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = tohr_many(jobs=jobs, **shared)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    counts, routes = launch_counts(), route_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for k, (single_fp, many_fp) in enumerate(zip(single_fps, many_fps)):
+        same_raster(single_fp, many_fp, f"stream scene {k}")
+    timings = [r["scene_timings"] for r in results]
+    dem_counts = timings[-1]["dem_counts"]
+    if dem_counts != {"decoded_in_run": 1, "decoded_by_prefetch": 2, "resident": 5}:
+        raise AssertionError(f"stream: DEM counts {dem_counts}")
+    if [t["dem_resident"] for t in timings] != [False, True, True, True, True, True]:
+        raise AssertionError(f"stream: residency by scene {[t['dem_resident'] for t in timings]}")
+    scene_routes_ok("stream", counts, routes, len(scenes))
+    runtime_s = [float(r["runtime_s"]) for r in results]
+    line = {
+        "scenes": len(scenes),
+        "size": size,
+        "single_s_per_scene": sum(single_s) / len(single_s),
+        "single_s": single_s,
+        "single_setup_s": single_setup_s,
+        "single_read_s": single_read_s,
+        "stream_s_per_scene": many_s / len(scenes),
+        "stream_total_s": many_s,
+        "stream_setup_once_s": many_s - sum(runtime_s),
+        "stream_run_s": runtime_s,
+        "stream_read_s_miss": [t["read_s"] for t in timings if not t["dem_resident"]],
+        # Scenes 1 and 2 wait for (or find) the prefetch thread's upload;
+        # scenes 3 to 5 take a DEM an earlier scene left in the cache.
+        "stream_read_s_prefetched": [t["read_s"] for t in timings[1:3]],
+        "stream_read_s_cached": [t["read_s"] for t in timings[3:]],
+        "stream_exec_s": [t["exec_s"] for t in timings],
+        "stream_finish_s": [t["finish_s"] for t in timings],
+        "dem_counts": dem_counts,
+        "launches": counts,
+        "io_native_codec": bool(native.available()),
+        "peak_allocated_mib": peak / 2**20,
+    }
+    log(f"[stream] {json.dumps(line)}")
+    log(
+        f"[stream] six single tohr calls {line['single_s_per_scene']:.3f} s a scene; one tohr_many "
+        f"{line['stream_s_per_scene']:.3f} s a scene, its outputs equal bit for bit; DEM decodes "
+        f"{dem_counts}"
+    )
+    return {"scenes": scenes, "single_fps": single_fps, "launches": counts}
+
+
+def http_json(opener, method: str, url: str, payload=None, token=None):
+    """``(status, body, seconds)`` of one request; the body parsed as JSON
+    unless it is the metrics text."""
+    headers = {"Content-Type": "application/json"}
+    if token is not None:
+        headers["Authorization"] = f"Bearer {token}"
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers=headers, method=method)
+    t0 = time.perf_counter()
+    try:
+        with opener.open(req, timeout=600) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        status, raw = err.code, err.read()
+    seconds = time.perf_counter() - t0
+    text = raw.decode()
+    return status, (text if url.endswith("/metrics") else json.loads(text)), seconds
+
+
+class ServedDaemon:
+    """A started ``TohrService`` behind ``make_server`` on loopback, port 0,
+    served from a thread of this process; closed on exit."""
+
+    def __init__(self, **service_kw):
+        from floodsr_tpu_torch.serve import TohrService, make_server
+
+        self.service = TohrService(**service_kw)
+        self._make_server = make_server
+
+    def __enter__(self):
+        self.service.start()
+        self.server = self._make_server(self.service, host="127.0.0.1", port=0)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.server_port}"
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+        self.service.close()
+        return False
+
+
+def phase_serve(torch, seed: int, size: int, tmp: Path, stream: dict) -> dict:
+    """The daemon on loopback: requests, a batch with a failing job, the GET
+    endpoints, 401 and 400; then ``CostGrow`` through a second service."""
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+    from floodsr_tpu_torch.tohr import tohr
+
+    # Loopback only, whatever proxy the environment names.
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    token = "chip-smoke-token"
+    scenes, single_fps = stream["scenes"], stream["single_fps"]
+    card = torch.cuda.get_device_name(0)
+
+    def body(k: int, out_fp: Path) -> dict:
+        dem_fp, depth_fp = scenes[k]
+        return {"in": str(depth_fp), "dem": str(dem_fp), "out": str(out_fp)}
+
+    with ServedDaemon(
+        model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, auth_token=token,
+        data_root=tmp, device="cuda",
+    ) as daemon:
+        t0 = time.perf_counter()
+        warmed = daemon.service.warmup([(size, size)])
+        warmup_s = time.perf_counter() - t0
+        if warmed != 1:
+            raise AssertionError(f"serve: warmup returned {warmed}, expected 1 geometry")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        # Scenes 0, 1 and 3: the third request names scene 0's DEM again.
+        latencies, stages = [], []
+        for k in (0, 1, 3):
+            out_fp = tmp / f"served{k}.tif"
+            status, answer, seconds = http_json(
+                opener, "POST", daemon.base + "/v1/tohr", body(k, out_fp), token
+            )
+            if status != 200 or answer.get("output_fp") != str(out_fp):
+                raise AssertionError(f"serve: POST /v1/tohr scene {k}: {status} {answer}")
+            same_raster(single_fps[k], out_fp, f"served scene {k}")
+            latencies.append(seconds)
+            # Where the request's time went: the worker's run inside the
+            # handler's span inside the client's round trip.
+            stages.append({
+                "client_s": seconds, "handler_s": answer["serve_runtime_s"],
+                "run_s": answer["runtime_s"],
+                **{key: answer["scene_timings"][key] for key in ("read_s", "exec_s", "finish_s")},
+            })
+            resident = answer["scene_timings"]["dem_resident"]
+            if resident != (k == 3):
+                raise AssertionError(f"serve: scene {k} dem_resident={resident}")
+        # A batch of three whose middle job names a missing depth file.
+        missing = body(5, tmp / "served_missing.tif")
+        missing["in"] = str(tmp / "no_such_depth.tif")
+        batch = {"jobs": [body(2, tmp / "served2.tif"), missing, body(4, tmp / "served4.tif")]}
+        status, answer, batch_s = http_json(
+            opener, "POST", daemon.base + "/v1/tohr_many", batch, token
+        )
+        oks = [r.get("ok") for r in answer.get("results", [])] if status == 200 else None
+        if oks != [True, False, True]:
+            raise AssertionError(f"serve: POST /v1/tohr_many: {status} ok={oks} {answer}")
+        for k in (2, 4):
+            same_raster(single_fps[k], tmp / f"served{k}.tif", f"served batch scene {k}")
+        if (tmp / "served_missing.tif").exists():
+            raise AssertionError("serve: the failed job left an output file")
+        torch.cuda.synchronize()
+        counts, routes = launch_counts(), route_counts()
+        scene_routes_ok("serve", counts, routes, 5)
+
+        status, health, _ = http_json(opener, "GET", daemon.base + "/v1/healthz")
+        if status != 200 or health.get("status") != "ok" or health.get("requests_done") != 4:
+            raise AssertionError(f"serve: GET /v1/healthz: {status} {health}")
+        status, metrics, _ = http_json(opener, "GET", daemon.base + "/v1/metrics", token=token)
+        if status != 200 or "floodsr_scenes_done 5\n" not in metrics:
+            raise AssertionError(f"serve: GET /v1/metrics: {status}\n{metrics}")
+        status, doctor, _ = http_json(opener, "GET", daemon.base + "/v1/doctor", token=token)
+        if status != 200 or doctor.get("cuda_available") is not True or card not in doctor["cuda_devices"]:
+            raise AssertionError(f"serve: GET /v1/doctor does not name {card!r}: {status} {doctor}")
+        status, answer, _ = http_json(opener, "POST", daemon.base + "/v1/tohr", body(0, tmp / "noauth.tif"))
+        if status != 401:
+            raise AssertionError(f"serve: a request without the token got {status} {answer}")
+        outside = body(0, tmp.parent / "outside_data_root.tif")
+        status, answer, _ = http_json(opener, "POST", daemon.base + "/v1/tohr", outside, token)
+        if status != 400 or "data root" not in answer.get("error", ""):
+            raise AssertionError(f"serve: a path outside data_root got {status} {answer}")
+        status, answer, _ = http_json(
+            opener, "POST", daemon.base + "/v1/tohr", {**body(0, tmp / "dev.tif"), "device": "cpu"}, token
+        )
+        if status != 400:
+            raise AssertionError(f"serve: a request naming 'device' got {status} {answer}")
+
+    # CostGrow through the daemon at 512²: every relaxation a K3 launch.
+    valley = valley_scene(tmp, seed, 512)
+    params = costgrow_params(tmp)["CostGrow"]
+    grown_fp, direct_fp = tmp / "served_costgrow.tif", tmp / "direct_costgrow.tif"
+    with ServedDaemon(
+        model_version="CostGrow", model_fp=params, auth_token=token, data_root=tmp, device="cuda"
+    ) as daemon:
+        if daemon.service.warmup([(512, 512)]) != 0:
+            raise AssertionError("serve: the CostGrow service's warmup did not return 0")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        status, answer, costgrow_s = http_json(
+            opener, "POST", daemon.base + "/v1/tohr",
+            {"in": str(valley["wse"]), "dem": str(valley["dem"]), "out": str(grown_fp)}, token,
+        )
+        k3 = launch_counts()["relax_step"]
+        if status != 200:
+            raise AssertionError(f"serve: CostGrow request: {status} {answer}")
+        relaxations = sum(s["relaxations"] for s in answer["solves"].values())
+        if k3 != relaxations or k3 <= 0:
+            raise AssertionError(f"serve: CostGrow request: {k3} K3 launches for {relaxations} relaxations")
+    tohr(
+        model_version="CostGrow", model_fp=params, depth_lr_fp=valley["wse"],
+        dem_hr_fp=valley["dem"], output_fp=direct_fp, device="cuda",
+    )
+    if not np.array_equal(read_wse(grown_fp), read_wse(direct_fp), equal_nan=True):
+        raise AssertionError("serve: the CostGrow request's output differs from tohr's")
+
+    line = {
+        "warmup_s": warmup_s,
+        "first_request_s": latencies[0],
+        "second_request_s": latencies[1],
+        "cache_hit_request_s": latencies[2],
+        "batch_s_per_scene": batch_s / 2,
+        "batch_s": batch_s,
+        "request_stages": stages,
+        "costgrow_512_request_s": costgrow_s,
+        "launches": counts,
+        "costgrow_relax_step_launches": k3,
+    }
+    log(f"[serve] {json.dumps(line)}")
+    log(
+        "[serve] 3 requests and a batch of 3 (ok true, false, true) answered with tohr's rasters; "
+        f"401 without the token, 400 outside the data root and for 'device'; doctor names {card!r}; "
+        f"CostGrow at 512x512 through the daemon in {costgrow_s:.3f} s ({k3} K3 launches)"
+    )
+    return {"launches": counts, "relax_step_launches": k3}
+
+
+def phase_cli(torch, seed: int, tmp: Path) -> None:
+    """``doctor`` and a two-input ``tohr`` as child processes; exit code 0 each."""
+    from floodsr_tpu_torch.tohr import tohr
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])
+    ))
+    cli = [sys.executable, "-m", "floodsr_tpu_torch.cli"]
+
+    def child(args: list[str]) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            cli + args, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600
+        )
+        if done.returncode != 0:
+            raise AssertionError(
+                f"cli {' '.join(args[:2])}: exit code {done.returncode}\n{done.stdout}\n{done.stderr}"
+            )
+        return done.stdout, time.perf_counter() - t0
+
+    card = torch.cuda.get_device_name(0)
+    out, doctor_s = child(["doctor"])
+    if "cuda_available=True" not in out.splitlines() or card not in out:
+        raise AssertionError(f"cli doctor does not report the card {card!r}:\n{out}")
+    built = [ln for ln in out.splitlines() if ln.startswith("kernels_built=")]
+    if built != ["kernels_built=tile_stats,hr_tail,relax_step"]:
+        raise AssertionError(f"cli doctor: the child does not find the kernels built: {built}")
+
+    size = 1024
+    dem_fp, depth_a = scene_inputs(tmp, seed + 200, size, tag="_cli_a")
+    _, depth_b = scene_inputs(tmp, seed + 201, size, tag="_cli_b", dem=False)
+    out_dir = tmp / "cli_out"
+    out, tohr_s = child([
+        "tohr", "--model-path", str(FLAGSHIP), "--in", str(depth_a), str(depth_b),
+        "--dem", str(dem_fp), "--out", str(out_dir),
+    ])
+    printed = [Path(ln) for ln in out.strip().splitlines()]
+    want = [out_dir / f"{fp.stem}_sr.tif" for fp in (depth_a, depth_b)]
+    if printed != want:
+        raise AssertionError(f"cli tohr printed {printed}, expected {want}")
+    for depth_fp, cli_fp in zip((depth_a, depth_b), want):
+        lib_fp = tmp / f"lib_{depth_fp.stem}.tif"
+        tohr(
+            model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, depth_lr_fp=depth_fp,
+            dem_hr_fp=dem_fp, output_fp=lib_fp, device="cuda",
+        )
+        same_raster(lib_fp, cli_fp, f"cli tohr {depth_fp.name}")
+    log(
+        f"[cli] doctor exit 0 in {doctor_s:.1f} s (cuda_available=True, {card!r}, kernels found "
+        f"built); tohr with two inputs at {size}x{size} exit 0 in {tohr_s:.1f} s, both files equal "
+        "to tohr's"
+    )
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -989,6 +1378,20 @@ def main(argv=None) -> int:
     kernels.append(k3)
     phase_costgrow_small(torch, args.seed)
     phase_resunet_wse()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serving-") as tmp:
+        tmp = Path(tmp).resolve()
+        stream = phase_stream(torch, args.seed, SCENE_SIZE, tmp)
+        serve = phase_serve(torch, args.seed, SCENE_SIZE, tmp, stream)
+        phase_cli(torch, args.seed, tmp)
+    # Each serving path's own launches, read around that path alone.
+    for k in kernels:
+        k["launches_stream"] = stream["launches"][k["name"]]
+        k["launches_serve"] = (
+            serve["relax_step_launches"] if k["name"] == "relax_step"
+            else serve["launches"][k["name"]]
+        )
+        if k["name"] != "relax_step" and not (k["launches_stream"] > 0 and k["launches_serve"] > 0):
+            raise AssertionError(f"{k['name']} was not launched on a serving path: {k}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])

@@ -6,7 +6,7 @@ Layout (same as the reference, so a user's existing cache keeps working)::
 
 with the platform user-cache root from ``platformdirs`` unless the caller
 passes an explicit directory. TTL/purge policy on top of this layout lives in
-the JAX package's ``cache_policy`` (the reference spec'd it in ADR-0012 but
+:mod:`floodsr_tpu_torch.cache_policy` (the reference spec'd it in ADR-0012 but
 never built it).
 """
 

@@ -1,2 +1,8 @@
-"""DEM-source helpers. Only the projection math (:mod:`.geodesy`) is ported;
-the DEM fetchers wait for the CLI's network layer."""
+"""DEM-source helpers: the projection math (:mod:`.geodesy`) and the DEM
+fetchers (:mod:`.catalog`, :mod:`.hrdem_stac`), host-only copies of the JAX
+package's."""
+
+from floodsr_tpu_torch.dem_sources.catalog import fetch_dem
+from floodsr_tpu_torch.dem_sources.base import DemFetchResult
+
+__all__ = ["fetch_dem", "DemFetchResult"]

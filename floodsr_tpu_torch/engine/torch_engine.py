@@ -186,6 +186,62 @@ class EngineTorch(EngineBase):
 
     # -- scenes -------------------------------------------------------------
 
+    def warmup(
+        self,
+        crop_shapes,
+        *,
+        stride_hr: int,
+        overlap_hr: int,
+        max_depth: float,
+        dem_pct_clip: float,
+        tile_lr: "int | None" = None,
+    ) -> int:
+        """Run one scene of zeros per distinct scene geometry, before traffic.
+
+        Eager PyTorch compiles nothing at run time and the port carries no
+        shape buckets, so there is no executable to precompile. What the
+        first scene of a geometry does pay for, and what this does ahead of
+        it: on CUDA, ``nvcc`` builds and loads the hand-written kernels the
+        model uses (all at once); the first tail call packs the ``hr_tail``
+        weights, with the tensor-core pack at the widths that route takes;
+        and the zeros scene lets cuDNN choose its algorithms at these batch
+        shapes and fills the caching allocator's pools (device and pinned
+        host) at this scene size. ``crop_shapes``: iterable of expected HR
+        scene extents; extents that pad to the same whole-tile scene are
+        warmed once. Returns the number of distinct geometries warmed.
+        """
+        assert self.model is not None and self.config is not None, (
+            "engine must be loaded before warmup"
+        )
+        cfg = self.scene_config(tile_lr)
+        if self.device.type == "cuda":
+            from floodsr_tpu_torch.nn.resunet import hr_tail_eligible
+            from floodsr_tpu_torch.ops.kernels import _build
+
+            names = ["tile_stats"] + (["hr_tail"] if hr_tail_eligible(self.model) else [])
+            _build.build(names)
+            for name in names:
+                _build.load(name)
+        warmed = set()
+        for shape in crop_shapes:
+            shape = (int(shape[0]), int(shape[1]))
+            content = self.content_shape(shape, tile_lr)
+            if content in warmed:
+                continue
+            warmed.add(content)
+            self.run_scene(
+                np.zeros((content[0] // cfg.scale, content[1] // cfg.scale), np.float32),
+                np.zeros(content, np.float32),
+                stride_hr=int(stride_hr),
+                overlap_hr=int(overlap_hr),
+                max_depth=float(max_depth),
+                dem_pct_clip=float(dem_pct_clip),
+                crop_shape=content,
+                tile_lr=tile_lr,
+            )
+        self.log.info(f"warmed {len(warmed)} scene geometry(ies)")
+        return len(warmed)
+
     def run_scene(
         self,
         depth_raw,

@@ -10,19 +10,27 @@ GeoTIFF write, and the same diagnostics dict keys.
 The whole scene runs on the device through :meth:`EngineTorch.run_scene`
 (one upload of the DEM, uint16-encoded when large; the two-phase executor;
 one download). The worker runs on the GPU unless constructed with
-``device="cpu"``, and raises when CUDA is absent. Not ported yet: the DEM
-device cache, prefetch and ``run_many``/``warmup``.
+``device="cpu"``, and raises when CUDA is absent.
+
+Serving: recently used DEMs stay resident on the device (terrain is static
+across forecast cycles), :meth:`ModelWorker.prefetch_dem` decodes and uploads
+a DEM in a background thread on a CUDA stream of its own, and
+:meth:`ModelWorker.run_many` streams scenes through one engine with the next
+scene's DEM in flight while the current scene computes.
 """
 
 from __future__ import annotations
 
 import logging
 import tempfile
+import threading
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
 
 from floodsr_tpu_torch.device import resolve_device
 from floodsr_tpu_torch.engine import EngineTorch
@@ -60,6 +68,17 @@ class ModelWorker(Model):
         self.output_transfer = output_transfer
         self.input_transfer = input_transfer
         self.engine: EngineTorch | None = None
+        self._dem_device_cache: OrderedDict = OrderedDict()
+        self._dem_prefetch: dict = {}
+        # Guards cache + prefetch-registry mutation: run() on the calling
+        # thread and the background prefetch insert/evict concurrently.
+        self._dem_cache_lock = threading.Lock()
+        self._dem_cache_bytes = 0
+        # The prefetch thread's own CUDA stream (made on entry, CUDA only).
+        self._prefetch_stream = None
+        #: DEM decodes made inside run(), decodes made by the prefetch thread,
+        #: and run() calls that found their DEM resident, since construction.
+        self.dem_counts = {"decoded_in_run": 0, "decoded_by_prefetch": 0, "resident": 0}
 
     def __enter__(self):
         self.engine = EngineTorch(
@@ -70,16 +89,52 @@ class ModelWorker(Model):
             output_transfer=self.output_transfer,
             device=self.device,
         )
+        if self.device.type == "cuda":
+            self._prefetch_stream = torch.cuda.Stream(self.device)
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        # Join in-flight DEM prefetch threads BEFORE clearing: a late
+        # _dem_cache_put would otherwise repopulate the "cleared" cache of a
+        # closed worker (retaining a large device buffer) and race
+        # interpreter teardown with a mid-flight upload.
+        with self._dem_cache_lock:
+            inflight = list(self._dem_prefetch.values())
+        for t in inflight:
+            t.join(timeout=60.0)
         if self.engine is not None:
             self.engine.close()
         self.engine = None
+        with self._dem_cache_lock:
+            self._dem_device_cache.clear()
+            self._dem_cache_bytes = 0
+            self._dem_prefetch.clear()
+        self._prefetch_stream = None
         return False
 
-    def _decode_and_upload_dem(self, dem_hr_path: Path):
-        """GeoTIFF decode + quantized upload of one DEM."""
+    # -- DEM device cache / scene streaming ----------------------------
+
+    #: max device-resident DEMs kept across runs (terrain is static across
+    #: forecast cycles; a hit skips both GeoTIFF decode and the upload).
+    DEM_CACHE_CAP = 4
+    #: byte budget for the cached device DEMs (float32 on the device, so
+    #: 4 bytes a pixel: count alone could pressure device memory on
+    #: country-scale terrain).
+    DEM_CACHE_MAX_BYTES = 2 * 1024**3
+
+    def _dem_cache_key(self, path: Path):
+        try:
+            st = path.stat()
+        except OSError:
+            return None
+        return (str(path), st.st_mtime_ns, st.st_size, self.input_transfer)
+
+    def _decode_and_upload_dem(self, dem_hr_path: Path, stream=None):
+        """GeoTIFF decode + quantized upload of one DEM; returns the cache value.
+
+        ``stream`` is the side stream of a background upload (see
+        :func:`floodsr_tpu_torch.ops.transfer.device_put_dem_quantized`).
+        """
         from floodsr_tpu_torch.ops.normalize import nodata_mask
         from floodsr_tpu_torch.ops.transfer import device_put_dem_quantized
 
@@ -89,9 +144,152 @@ class ModelWorker(Model):
         ).all(), "DEM contains non-finite values"
         dem_dev = device_put_dem_quantized(
             dem_raw, nodata, enabled=self.input_transfer == "uint16",
-            device=self.device,
+            device=self.device, stream=stream,
         )
         return dem_dev, nodata, profile
+
+    @staticmethod
+    def _nbytes(value) -> int:
+        return int(value[0].numel() * value[0].element_size())
+
+    def _dem_cache_put(self, key, value) -> None:
+        # Lock-guarded with a running byte counter: the prefetch thread and
+        # the run() thread both insert/evict, and iterating the OrderedDict
+        # for a byte total while the other thread mutates it raises
+        # "mutated during iteration".
+        with self._dem_cache_lock:
+            cache = self._dem_device_cache
+            old = cache.pop(key, None)
+            if old is not None:
+                self._dem_cache_bytes -= self._nbytes(old)
+            cache[key] = value
+            self._dem_cache_bytes += self._nbytes(value)
+            while len(cache) > 1 and (
+                len(cache) > self.DEM_CACHE_CAP
+                or self._dem_cache_bytes > self.DEM_CACHE_MAX_BYTES
+            ):
+                _, evicted = cache.popitem(last=False)
+                self._dem_cache_bytes -= self._nbytes(evicted)
+
+    def _dem_cache_get(self, key):
+        if key is None:
+            return None
+        with self._dem_cache_lock:
+            value = self._dem_device_cache.get(key)
+            if value is not None:
+                self._dem_device_cache.move_to_end(key)
+            return value
+
+    def prefetch_dem(self, dem_hr_fp) -> "threading.Thread | None":
+        """Decode + upload a scene's DEM in a background thread.
+
+        Scene-streaming hook: while scene *i* computes on the device, scene
+        *i+1*'s DEM (usually the dominant input) decodes and uploads —
+        :meth:`run` then hits the device cache. Safe to call for a DEM
+        already cached or in flight (no duplicate work). On CUDA the thread
+        uploads and dequantizes on the worker's side stream, so its copies
+        do not queue behind the running scene's kernels; the stream is
+        synchronized before the tensor enters the cache, so whoever takes it
+        from there may read it on any stream.
+        """
+        path = Path(dem_hr_fp).expanduser().resolve()
+        key = self._dem_cache_key(path)
+        if key is None:
+            return None
+
+        def work():
+            try:
+                if self.device.type == "cuda":
+                    # A new thread starts on device 0.
+                    torch.cuda.set_device(self.device)
+                value = self._decode_and_upload_dem(path, stream=self._prefetch_stream)
+                self._dem_cache_put(key, value)
+                with self._dem_cache_lock:
+                    self.dem_counts["decoded_by_prefetch"] += 1
+            except Exception:
+                self.log.exception(f"DEM prefetch failed for {path}")
+            finally:
+                with self._dem_cache_lock:
+                    self._dem_prefetch.pop(key, None)
+
+        with self._dem_cache_lock:
+            if key in self._dem_device_cache or key in self._dem_prefetch:
+                return None
+            t = threading.Thread(
+                target=work, name="floodsr-dem-prefetch", daemon=True
+            )
+            self._dem_prefetch[key] = t
+        t.start()
+        return t
+
+    def warmup(
+        self,
+        hr_shapes,
+        *,
+        window_method: str = "feather",
+        tile_overlap: int | None = None,
+        max_depth: float | None = None,
+        dem_pct_clip: float | None = None,
+        tile_size: int | None = None,
+    ) -> int:
+        """Warm the engine for expected HR scene extents before the first request.
+
+        Serving hook. Resolves windowing and normalization parameters exactly
+        as :meth:`run` would (train-config defaults + overrides), so what is
+        warmed is what real requests run, then hands over to
+        :meth:`EngineTorch.warmup`. Returns the number of distinct scene
+        geometries warmed.
+        """
+        assert self.engine is not None, "worker must be entered before warmup"
+        preprocess_cfg = resolve_preprocess_config(
+            self.model_fp, max_depth=max_depth, dem_pct_clip=dem_pct_clip,
+            logger=self.log,
+        )
+        contract = self.engine.contract
+        assert contract is not None
+        scale = int(contract.scale)
+        lr_tile = (
+            int(tile_size) if tile_size is not None
+            else int(contract.depth_lr_hwc[0])
+        )
+        hr_tile = lr_tile * scale
+        overlap_lr = int(tile_overlap) if tile_overlap is not None else lr_tile // 4
+        if window_method == "hard":
+            stride_hr, weight_overlap = hr_tile, 0
+        else:
+            if overlap_lr <= 0:
+                # Same validation as run(): warming a hard geometry for
+                # arguments every run() would reject leaves a "healthy"
+                # server that fails 100% of real requests.
+                raise AssertionError("feather windowing requires overlap_lr > 0")
+            stride_hr = hr_tile - overlap_lr * scale
+            weight_overlap = overlap_lr * scale
+        return self.engine.warmup(
+            hr_shapes,
+            stride_hr=stride_hr,
+            overlap_hr=weight_overlap,
+            max_depth=float(preprocess_cfg["max_depth"]),
+            dem_pct_clip=float(preprocess_cfg["dem_pct_clip"]),
+            tile_lr=lr_tile if tile_size is not None else None,
+        )
+
+    def run_many(self, jobs, **shared_kwargs) -> list[dict]:
+        """Pipelined multi-scene serving: stream scenes through one engine.
+
+        ``jobs`` is a sequence of dicts with at least ``depth_lr_fp``,
+        ``dem_hr_fp``, ``output_fp`` (plus optional per-job overrides of any
+        :meth:`run` keyword). The next scene's DEM decodes and uploads in a
+        background thread while the current scene computes, and every scene
+        reuses the loaded engine and the device DEM cache. Returns the
+        per-job diagnostics dicts in order.
+        """
+        jobs = [dict(j) for j in jobs]
+        results = []
+        for i, job in enumerate(jobs):
+            if i + 1 < len(jobs):
+                self.prefetch_dem(jobs[i + 1]["dem_hr_fp"])
+            results.append(self.run(**{**shared_kwargs, **job}))
+        return results
 
     # ------------------------------------------------------------------
 
@@ -277,13 +475,42 @@ class ModelWorker(Model):
         )
 
         t_read0 = time.perf_counter()
-        # Decode + upload the DEM first (uint16 fixed-point encoded when
-        # large, halving the bytes on the link — ops/transfer.py).
-        dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = (
-            self._decode_and_upload_dem(dem_hr_path)
-        )
+        # Terrain is static across forecast runs: keep recently uploaded DEMs
+        # resident on the device, keyed by file identity (path, mtime, size).
+        # A hit skips both the GeoTIFF decode and the upload. A prefetch
+        # started by run_many/prefetch_dem is joined rather than duplicated.
+        dem_cache_key = self._dem_cache_key(dem_hr_path)
+        with self._dem_cache_lock:
+            inflight = self._dem_prefetch.get(dem_cache_key) if dem_cache_key else None
+        if inflight is not None:
+            inflight.join()
+        cached = self._dem_cache_get(dem_cache_key)
+        dem_resident = cached is not None
+        if dem_resident:
+            dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = cached
+            if dem_hr_dev.is_cuda:
+                # The tensor may have been allocated on the prefetch stream:
+                # tell the allocator that this stream reads it, so an evicted
+                # DEM's memory is not handed out while a scene still uses it.
+                dem_hr_dev.record_stream(torch.cuda.current_stream(dem_hr_dev.device))
+            log.debug("DEM device cache hit; skipping decode + upload")
+        else:
+            # Decode + upload the DEM first (uint16 fixed-point encoded when
+            # large, halving the bytes on the link — ops/transfer.py).
+            dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = (
+                self._decode_and_upload_dem(dem_hr_path)
+            )
+            if dem_cache_key is not None:
+                self._dem_cache_put(
+                    dem_cache_key,
+                    (dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile),
+                )
+        with self._dem_cache_lock:
+            self.dem_counts["resident" if dem_resident else "decoded_in_run"] += 1
+            dem_counts = dict(self.dem_counts)
         depth_lr_raw, depth_lr_raw_nodata, depth_lr_raw_profile = _read_single_band_raster(depth_lr_path)
-        log.debug(f"stage timings: read={time.perf_counter() - t_read0:.3f}s")
+        read_s = time.perf_counter() - t_read0
+        log.debug(f"stage timings: read={read_s:.3f}s")
         depth_lr_bounds = raster_bounds(depth_lr_raw_profile)
         dem_raw_shape = (dem_hr_raw_profile["height"], dem_hr_raw_profile["width"])
         log.info(
@@ -543,10 +770,15 @@ class ModelWorker(Model):
             "output_size_bytes": out_file_size,
             # Device/transfer/host budget of the scene execution (see
             # EngineTorch.run_scene): h2d_s, exec_s, finish_s, and finish's
-            # d2h_wait_s vs host_post_s (dequant/resample/encode).
-            "scene_timings": dict(
-                getattr(self.engine, "last_scene_timings", {}) or {}
-            ),
+            # d2h_wait_s vs host_post_s (dequant/resample/encode); beside it
+            # the read stage, whether it found the DEM resident, and the
+            # worker's DEM counts after this scene.
+            "scene_timings": {
+                **(getattr(self.engine, "last_scene_timings", {}) or {}),
+                "read_s": read_s,
+                "dem_resident": dem_resident,
+                "dem_counts": dem_counts,
+            },
             "preprocess": {
                 "max_depth": float(preprocess_cfg["max_depth"]),
                 "dem_pct_clip": float(preprocess_cfg["dem_pct_clip"]),

@@ -12,6 +12,14 @@ device:
 
 Small arrays (< ``_MIN_BYTES``) and degenerate ranges skip the encoding and
 upload float32 directly, so test-sized scenes are bit-identical either way.
+
+A background thread (the worker's DEM prefetch) passes a CUDA ``stream`` of its
+own: the copy and the dequantization are enqueued there, so they do not queue
+behind a running scene on the default stream, and the stream is synchronized
+before the tensor is returned, so it is complete and any stream may read it.
+Its memory belongs to that stream's pool in the caching allocator: a reader on
+another stream calls ``Tensor.record_stream`` (the worker does, on a cache
+hit).
 """
 
 from __future__ import annotations
@@ -38,14 +46,27 @@ def device_put_dem_quantized(
     *,
     enabled: bool = True,
     device: "str | torch.device" = "cuda",
+    stream: "torch.cuda.Stream | None" = None,
 ) -> torch.Tensor:
     """Upload ``arr`` (2-D float raster) to ``device``, uint16-encoded when large.
 
     Returns a float32 tensor equal to ``arr`` up to the quantization step
     (exact on nodata cells). Uploads float32 directly when disabled, small,
-    non-finite-ranged, or constant.
+    non-finite-ranged, or constant. With ``stream`` (CUDA only) the device
+    work runs on that stream, which is synchronized before returning.
     """
     device = torch.device(device)
+    if stream is None:
+        return _put_dem_quantized(arr, nodata, enabled, device)
+    with torch.cuda.stream(stream):
+        x = _put_dem_quantized(arr, nodata, enabled, device)
+    stream.synchronize()
+    return x
+
+
+def _put_dem_quantized(
+    arr: np.ndarray, nodata: "float | None", enabled: bool, device: torch.device
+) -> torch.Tensor:
     arr32 = np.ascontiguousarray(arr, dtype=np.float32)
     if not enabled or arr32.nbytes < _MIN_BYTES:
         return _upload(arr32, device)

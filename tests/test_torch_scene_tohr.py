@@ -30,7 +30,9 @@ from floodsr_tpu_torch.models.ResUNet_16x_DEM import ModelWorker
 from floodsr_tpu_torch.nn.checkpoint import params_from_jax
 from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig
 from floodsr_tpu_torch.ops.normalize import replace_nodata_with_zero
+from floodsr_tpu_torch.serve import TohrService, serve
 from floodsr_tpu_torch.tohr import tohr as tohr_torch
+from floodsr_tpu_torch.tohr import tohr_many as tohr_many_torch
 
 pytestmark = pytest.mark.unit
 
@@ -160,6 +162,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "floodsr_tpu_torch/models/CostGrow_pcraster.py",
         "floodsr_tpu_torch/features/footprints.py",
         "floodsr_tpu_torch/dem_sources/geodesy.py",
+        "floodsr_tpu_torch/cli.py",
+        "floodsr_tpu_torch/serve.py",
+        "floodsr_tpu_torch/engine/providers.py",
+        "floodsr_tpu_torch/cache_policy.py",
+        "floodsr_tpu_torch/hostmem.py",
+        "floodsr_tpu_torch/dem_sources/base.py",
+        "floodsr_tpu_torch/dem_sources/catalog.py",
+        "floodsr_tpu_torch/dem_sources/hrdem_stac.py",
+        "floodsr_tpu_torch/features/nrcan_buildings.py",
+        "chip_smoke.py",
     } <= covered
     banned = ("jax", "floodsr_tpu")
     offenders = [
@@ -174,7 +186,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "floodsr_tpu_torch.engine.scene" in own
 
 
-@pytest.mark.parametrize("entry", [tohr_torch, EngineTorch.__init__, ModelWorker.__init__])
+@pytest.mark.parametrize(
+    "entry",
+    [tohr_torch, tohr_many_torch, EngineTorch.__init__, ModelWorker.__init__,
+     TohrService.__init__, serve],
+)
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
