@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py                # every phase, seed 0
-    python3 chip_smoke.py --profile      # and device time by kernel
+    python3 chip_smoke.py --profile      # and device time by kernel (traced scenes)
 
 Phases (any failure raises and exits non-zero; none is caught):
 
@@ -18,10 +18,14 @@ Phases (any failure raises and exits non-zero; none is caught):
 4. hr_tail (K1) against its plain torch version on the card, at the flagship
    artifact's fuse/head weights and ``[8,128,128,128] + [8,128,128,32]``: the
    tensor-core route (3xTF32 ``wgmma``) at 8 tiles and at 1, and the direct
-   route (f32 on the CUDA cores) at 8 tiles beside it;
+   route (f32 on the CUDA cores) at 8 tiles beside it; then the bf16
+   arithmetic against ITS plain version (``hr_tail_reference_bf16``): the
+   bf16 ``wgmma`` route at 8 tiles and at 1, and the direct bf16 route at the
+   narrow test artifact's widths, timed beside the cuDNN chain in bf16;
 5. ``tohr`` on every ``tests/data/synth_*`` case, metrics equal to
    ``case_spec.json`` at its precision; K2 launched on every case, K1 on
-   ``synth_flagship`` (its tensor-core route);
+   ``synth_flagship`` (its tensor-core route); ``depth_metrics_torch`` on the
+   card equal to the numpy metrics at 3 decimals;
 6. a timed 4096² scene (256² LR depth) with the flagship artifact, the
    kernels' launch counts read from that run (every K1 call on the
    tensor-core route, every K2 launch on the one-read route), and the
@@ -62,7 +66,22 @@ Phases (any failure raises and exits non-zero; none is caught):
 14. cli — child processes ``python3 -m floodsr_tpu_torch.cli doctor`` and
     ``... cli tohr --in a.tif b.tif --dem dem.tif --out <dir>`` at 1024²,
     exit code 0 each, the files equal to ``tohr``'s;
-15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+15. policies — the 4096² flagship scene under ``compute_dtype="bfloat16"``
+    (16 K1 calls on the bf16 route, none other) and ``"mixed"`` (16 on the
+    3xTF32 route): end to end, ``exec_s`` and the RMSE in metres against the
+    f32 scene of the same seed;
+16. finish — one 4096² scene whose DEM is a 3840² raster over the same extent,
+    so the output is resampled onto the DEM's grid: ``output_transfer="uint12"``
+    against ``"float32"`` (within ``max_depth / 4095``), and the device
+    postprocess against the host resampler (``FLOODSR_DEVICE_POSTPROC=0``),
+    with the finish stage's seconds each way;
+17. onnx — the tf2onnx-idiom replica of the released graph
+    (``tests/onnx_replica.py``, 12.2 M parameters, 32² → 512² tiles) written
+    to a temporary ``.onnx``: interpreter, converted graph and the replica's
+    own torch module agree on a batch of tiles; the ``.onnx`` through ``tohr``
+    at 4096² (121 tiles, single-phase executor, K2 launched, K1 not), then
+    ``convert_onnx_to_fsrz`` and the same scene through the ``.fsrz``;
+18. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -93,6 +112,7 @@ FLAGSHIP = DATA / "_artifacts" / "model_infer_flagship.fsrz"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
+PEAK_BF16_PER_S = 989e12
 
 SCENE_SIZE = 4096  # HR pixels per side of the timed scene (256² LR depth)
 
@@ -253,11 +273,12 @@ def phase_tile_stats(torch, rng) -> dict:
     }
 
 
-def phase_hr_tail(torch, rng) -> dict:
+def phase_hr_tail(torch, rng) -> list[dict]:
     import torch.nn.functional as F
 
     from floodsr_tpu_torch.engine import EngineTorch
     from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+    from floodsr_tpu_torch.ops.kernels import reset_launch_counts
 
     engine = EngineTorch(FLAGSHIP, device="cuda")
     model, cfg = engine.model, engine.config
@@ -270,11 +291,11 @@ def phase_hr_tail(torch, rng) -> dict:
     sr = torch.from_numpy(np.abs(rng.normal(0, 1, (b, hw, hw, ca))).astype(np.float32)).cuda()
     dem = torch.from_numpy(np.abs(rng.normal(0, 1, (b, hw, hw, cb))).astype(np.float32)).cuda()
     tc_pack = ht.pack_hr_tail_tc(weights)
-    ht.route_launches.update(tensor=0, direct=0)
+    reset_launch_counts()
     got = ht.hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack)
     want = ht.hr_tail_reference(sr, dem, *weights)
     torch.cuda.synchronize()
-    if ht.route_launches != {"tensor": 1, "direct": 0}:
+    if ht.route_launches != {**dict.fromkeys(ht.route_launches, 0), "tensor": 1}:
         raise AssertionError(f"hr_tail at the flagship widths did not take the tensor-core route: {ht.route_launches}")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
@@ -335,8 +356,9 @@ def phase_hr_tail(torch, rng) -> dict:
         f"{f32_bound_ms:.3f} ms (f32 on the CUDA cores, the direct route's bound) and "
         f"{one_product_ms:.3f} ms (one TF32 product); at one tile {bound_ms / b:.4f} ms"
     )
+    bf16 = hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes)
     engine.close()
-    return {
+    return [{
         "name": "hr_tail",
         "route": "cuda",
         "source": "floodsr_tpu_torch/csrc/hr_tail.cu",
@@ -352,11 +374,160 @@ def phase_hr_tail(torch, rng) -> dict:
         "ms_1_tile": ms1,
         "direct_route_ms": direct_ms,
         "direct_route_bound_ms": f32_bound_ms,
+    }, bf16]
+
+
+#: Share of max |plain| the bf16 routes may differ from hr_tail_reference_bf16
+#: by. The products are exact in f32 on both sides; the f32 sums run in another
+#: order, and an activation within an f32 rounding of a bf16 tie then rounds
+#: the other way: 2^-9 of one operand among 1,152 to 1,440. With the flagship
+#: artifact's weights the intermediates are some hundred times the output, so
+#: one such flip shows as 3.5e-3 of max |out| (measured on an H100; 2e-3 holds
+#: for weights of unit scale, as the CUDA tests use). Far under the 0.15 of the
+#: range that separates bf16 from f32 in the TPU kernel's own test; and the
+#: flips are rare: their root mean square must stay under a quarter of the
+#: distance between the bf16 and the f32 result.
+BF16_GATE = 1e-2
+
+
+def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -> dict:
+    """K1's bf16 arithmetic on the card against its plain version, and its times."""
+    import torch.nn.functional as F
+
+    from floodsr_tpu_torch.ops.kernels import reset_launch_counts
+
+    b = int(sr.shape[0])
+    pack = ht.pack_hr_tail_bf16(weights)
+    want = ht.hr_tail_reference_bf16(sr, dem, *weights)
+    f32 = ht.hr_tail_reference(sr, dem, *weights)
+    reset_launch_counts()
+    got = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    got1 = ht.hr_tail(sr[:1], dem[:1], *weights, tc_pack=pack, mode="bf16")
+    again = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    torch.cuda.synchronize()
+    if ht.route_launches != {**dict.fromkeys(ht.route_launches, 0), "bf16": 3}:
+        raise AssertionError(f"hr_tail in bf16 at the flagship widths took another route: {ht.route_launches}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    err1 = (got1 - want[:1]).abs().max().item()
+    gap = (want - f32).abs().max().item()
+    if not torch.equal(got, again):
+        raise AssertionError("hr_tail bf16 route: two calls on the same inputs differ")
+    rms_err = (got - want).square().mean().sqrt().item()
+    rms_gap = (want - f32).square().mean().sqrt().item()
+    if not max(err, err1) <= BF16_GATE * scale:
+        raise AssertionError(
+            f"hr_tail bf16 route vs plain: {err} (one tile {err1}) > {BF16_GATE} * {scale}; "
+            f"rms {rms_err}, |bf16 - f32| max {gap} rms {rms_gap}"
+        )
+    if not rms_err < 0.25 * rms_gap:
+        raise AssertionError(
+            f"hr_tail bf16 route: not the bf16 arithmetic? rms |kernel - plain| {rms_err}, "
+            f"rms |bf16 - f32| {rms_gap}"
+        )
+
+    # The direct bf16 route at the narrow test artifact's widths (16+8 -> 16 -> 4).
+    narrow = narrow_tail_weights(torch, rng, 16, 8, 16, 4)
+    nsr = torch.from_numpy(np.abs(rng.normal(0, 1, (2, 70, 45, 16))).astype(np.float32)).cuda()
+    ndem = torch.from_numpy(np.abs(rng.normal(0, 1, (2, 70, 45, 8))).astype(np.float32)).cuda()
+    reset_launch_counts()
+    ngot = ht.hr_tail(nsr, ndem, *narrow, mode="bf16")
+    torch.cuda.synchronize()
+    if ht.route_launches != {**dict.fromkeys(ht.route_launches, 0), "bf16_direct": 1}:
+        raise AssertionError(f"hr_tail in bf16 at narrow widths took another route: {ht.route_launches}")
+    nwant = ht.hr_tail_reference_bf16(nsr, ndem, *narrow)
+    nerr, nscale = (ngot - nwant).abs().max().item(), nwant.abs().max().item()
+    if not nerr <= BF16_GATE * nscale:
+        raise AssertionError(f"hr_tail direct bf16 route vs plain: {nerr} > {BF16_GATE} * {nscale}")
+    direct = ht.hr_tail_cuda(sr, dem, *weights, route="bf16_direct")
+    torch.cuda.synchronize()
+    err_direct = (direct - want).abs().max().item()
+    if not err_direct <= BF16_GATE * scale:
+        raise AssertionError(f"hr_tail direct bf16 route at the flagship widths: {err_direct} > {BF16_GATE} * {scale}")
+
+    ms = time_ms(torch, lambda: ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16"), reps=10)
+    ms1 = time_ms(torch, lambda: ht.hr_tail(sr[:1], dem[:1], *weights, tc_pack=pack, mode="bf16"), reps=10)
+    direct_ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="bf16_direct"), reps=5)
+    plain_ms = time_ms(torch, lambda: ht.hr_tail_reference_bf16(sr, dem, *weights), reps=10)
+
+    # Library yardstick: the cuDNN chain on bf16 tensors (bf16 intermediates,
+    # which the kernel does not keep), timed here and used nowhere in the port.
+    w = dict(zip(ht.WEIGHT_KEYS, weights))
+    h = {k: v.to(torch.bfloat16) for k, v in {**w, **oihw}.items()}
+    x16 = x_nchw.to(torch.bfloat16)
+
+    def cudnn_chain_bf16():
+        def ar(v, a, c):
+            return torch.relu(v * a[None, :, None, None] + c[None, :, None, None])
+
+        o = {k: h[k] for k in oihw}
+        y = F.conv2d(ar(x16, h["f1_a1"], h["f1_c1"]), o["f1_w1"], h["f1_b1"], padding=1)
+        y = F.conv2d(ar(y, h["f1_a2"], h["f1_c2"]), o["f1_w2"], h["f1_b2"], padding=1)
+        y1 = y + F.conv2d(x16, o["f1_pw"], h["f1_pb"])
+        y = F.conv2d(ar(y1, h["f2_a1"], h["f2_c1"]), o["f2_w1"], h["f2_b1"], padding=1)
+        y = F.conv2d(ar(y, h["f2_a2"], h["f2_c2"]), o["f2_w2"], h["f2_b2"], padding=1)
+        return F.conv2d((y + y1).float(), oihw["head_w"], w["head_b"])
+
+    library_ms = time_ms(torch, cudnn_chain_bf16, reps=10)
+    # One bf16 product per MAC on the tensor cores.
+    bound_ms, bound_by = bound(nbytes=nbytes, nops=2 * macs, ops_per_s=PEAK_BF16_PER_S)
+    log(
+        f"[hr_tail bf16] max |kernel - plain| {err:.3e} (max |plain| {scale:.3e}, "
+        f"{err / scale:.2e} of it; gate {BF16_GATE}; one tile {err1:.3e}; rms {rms_err:.3e}; "
+        f"|bf16 - f32| max {gap:.3e} rms {rms_gap:.3e}); "
+        f"direct bf16 route at 16+8->16->4 {nerr:.3e} of {nscale:.3e}, at the flagship widths "
+        f"{err_direct:.3e}; bf16 wgmma route {ms:.3f} ms at {b} tiles ({bound_ms / ms:.1%} of the "
+        f"bound {bound_ms:.3f} ms, {bound_by}: {2 * macs / 1e9:.1f} GFLOP at "
+        f"{PEAK_BF16_PER_S / 1e12:.0f} TFLOP/s), one tile {ms1:.3f} ms, direct bf16 route "
+        f"{direct_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN chain in bf16 {library_ms:.3f} ms"
+    )
+    return {
+        "name": "hr_tail_bf16",
+        "route": "cuda",
+        "source": "floodsr_tpu_torch/csrc/hr_tail.cu",
+        "replaces": "floodsr_tpu/ops/pallas/hr_tail.py:594",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "launches": None,
+        "bound_peak": "bf16 on the tensor cores",
+        "ms_1_tile": ms1,
+        "direct_route_ms": direct_ms,
+        "max_abs_err_share_of_max": err / scale,
     }
 
 
-def phase_tohr_cases() -> None:
-    from floodsr_tpu_torch.eval import compute_depth_error_metrics
+def narrow_tail_weights(torch, rng, ca: int, cb: int, cm: int, ch: int) -> list:
+    """Random ``hr_tail`` weights of the given widths, on the card."""
+    from floodsr_tpu_torch.ops.kernels.hr_tail import WEIGHT_KEYS
+
+    cin = ca + cb
+    shapes = {
+        "f1_a1": (cin,), "f1_c1": (cin,), "f1_w1": (3, 3, cin, cm), "f1_b1": (cm,),
+        "f1_a2": (cm,), "f1_c2": (cm,), "f1_w2": (3, 3, cm, cm), "f1_b2": (cm,),
+        "f1_pw": (cin, cm), "f1_pb": (cm,),
+        "f2_a1": (cm,), "f2_c1": (cm,), "f2_w1": (3, 3, cm, cm), "f2_b1": (cm,),
+        "f2_a2": (cm,), "f2_c2": (cm,), "f2_w2": (3, 3, cm, cm), "f2_b2": (cm,),
+        "head_w": (cm, ch), "head_b": (ch,),
+    }
+    out = []
+    for key in WEIGHT_KEYS:
+        shape = shapes[key]
+        if key.endswith(("_a1", "_a2")):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) > 1:
+            v = rng.normal(0.0, 1.0 / np.sqrt(int(np.prod(shape[:-1]))), shape)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        out.append(torch.from_numpy(v.astype(np.float32)).cuda())
+    return out
+
+
+def phase_tohr_cases(torch) -> None:
+    from floodsr_tpu_torch.eval import compute_depth_error_metrics, depth_metrics_torch
     from floodsr_tpu_torch.io import read_raster
     from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
     from floodsr_tpu_torch.ops.normalize import replace_nodata_with_zero
@@ -385,11 +556,24 @@ def phase_tohr_cases() -> None:
                 pred, _, _ = read_raster(out_fp)
                 assert pred.dtype == np.float32 and np.isfinite(pred).all()
                 metrics = compute_depth_error_metrics(truth, pred, max_depth=5.0)
+                on_card = depth_metrics_torch(
+                    torch.from_numpy(truth).cuda(), torch.from_numpy(pred).cuda(), max_depth=5.0
+                )
+                for key, value in on_card.items():
+                    host = metrics.get(key)
+                    if value.device.type != "cuda" or (
+                        host is not None and round(float(value), 3) != round(float(host), 3)
+                    ):
+                        raise AssertionError(
+                            f"{case_dir.name}/{label}: depth_metrics_torch {key}={float(value)} "
+                            f"on {value.device}, numpy {host}"
+                        )
                 precision = int(run["metrics"].get("precision", 3))
                 got = {k: round(float(metrics[k]), precision) for k in ("mase_m", "rmse_m", "ssim")}
                 want = {k: round(float(run["metrics"][k]), precision) for k in got}
                 log(
-                    f"[tohr] {case_dir.name}/{label}: {got} (expected {want}) "
+                    f"[tohr] {case_dir.name}/{label}: {got} (expected {want}; csi on the card "
+                    f"{float(on_card['csi']):.4f}) "
                     f"launches {counts} tiles {diag['preprocess']['tile_cache_size']}"
                 )
                 if got != want:
@@ -420,12 +604,15 @@ class _StageLog(logging.Handler):
 
 
 def scene_inputs(
-    tmp: Path, seed: int, size: int, tag: str = "", dem: bool = True
+    tmp: Path, seed: int, size: int, tag: str = "", dem: bool = True, dem_size: "int | None" = None,
 ) -> tuple["Path | None", Path]:
     """A ``size``² HR DEM and a ``size/16``² LR depth from ``seed``, as GeoTIFFs.
 
     With ``dem=False`` only the depth is written (another scene over a DEM
-    that exists already): the DEM's path comes back as ``None``.
+    that exists already): the DEM's path comes back as ``None``. ``dem_size``
+    writes the DEM as a raster of that many pixels a side over the same
+    extent: the model still runs at ``size``² and its output is resampled onto
+    the DEM's own grid.
     """
     from floodsr_tpu_torch.io import from_origin, write_raster
 
@@ -434,10 +621,11 @@ def scene_inputs(
     lr = size // scale
     hr_res, lr_res = 2.0, 2.0 * scale
     x0, y0 = 500000.0, 4000000.0 + size * hr_res
+    dem_px = size if dem_size is None else int(dem_size)
     dem_arr = (
         300.0
-        + np.cumsum(rng.normal(0.0, 0.3, (size, size)), axis=1)
-        + np.linspace(0.0, 60.0, size)[:, None]
+        + np.cumsum(rng.normal(0.0, 0.3, (dem_px, dem_px)), axis=1)
+        + np.linspace(0.0, 60.0, dem_px)[:, None]
     ).astype(np.float32)
     depth = np.clip(rng.gamma(1.5, 0.6, (lr, lr)) - 0.4, 0.0, 5.0).astype(np.float32)
 
@@ -450,7 +638,7 @@ def scene_inputs(
 
     dem_fp, depth_fp = tmp / f"dem{tag}.tif", tmp / f"depth{tag}.tif"
     if dem:
-        write_raster(dem_fp, dem_arr, profile(dem_arr.shape, hr_res))
+        write_raster(dem_fp, dem_arr, profile(dem_arr.shape, hr_res * size / dem_px))
     write_raster(depth_fp, depth, profile(depth.shape, lr_res))
     return (dem_fp if dem else None), depth_fp
 
@@ -1318,6 +1506,8 @@ def phase_cli(torch, seed: int, tmp: Path) -> None:
     built = [ln for ln in out.splitlines() if ln.startswith("kernels_built=")]
     if built != ["kernels_built=tile_stats,hr_tail,relax_step"]:
         raise AssertionError(f"cli doctor: the child does not find the kernels built: {built}")
+    if "hr_tail_bf16_built=True" not in out.splitlines():
+        raise AssertionError(f"cli doctor: the built hr_tail library lacks the bf16 route:\n{out}")
 
     size = 1024
     dem_fp, depth_a = scene_inputs(tmp, seed + 200, size, tag="_cli_a")
@@ -1345,12 +1535,309 @@ def phase_cli(torch, seed: int, tmp: Path) -> None:
     )
 
 
+# ---------------------------------------------------------------------------
+# precision policies, the finish stage, the ONNX path
+# ---------------------------------------------------------------------------
+
+#: Ceiling on the RMSE of a bf16 or mixed scene against the f32 scene, in
+#: metres (10% of max_depth). The JAX package's docstring puts both policies
+#: above its 1e-3 m parity gate with trained weights; the flagship artifact
+#: here is randomly initialised, its features reach 1e4 and its output
+#: saturates between 0 and max_depth, so a bf16 rounding in the trunk moves
+#: single pixels across the whole range. This only catches a broken policy;
+#: the arithmetic itself is held against the JAX package by the CPU tests.
+POLICY_RMSE_CEILING_M = 0.5
+
+
+def rmse_m(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.sqrt(np.mean(np.square(a.astype(np.float64) - b.astype(np.float64)))))
+
+
+def timed_tohr(torch, warm: bool = True, **kw) -> dict:
+    """``tohr(**kw)`` once unrecorded (``warm``), then timed with the kernels'
+    counts set to 0 just before and read just after."""
+    from floodsr_tpu_torch.io import read_raster
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+    from floodsr_tpu_torch.tohr import tohr
+
+    if warm:
+        tohr(**kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    diag = tohr(**kw)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    pred, _, _ = read_raster(kw["output_fp"])
+    if not (np.isfinite(pred).all() and pred.min() >= 0.0 and pred.max() <= 5.0):
+        raise AssertionError(f"{kw['output_fp']}: values outside [0, max_depth] or not finite")
+    return {
+        "pred": pred, "e2e_s": e2e_s, "counts": launch_counts(), "routes": route_counts(),
+        "timings": diag["scene_timings"], "tiles": int(diag["preprocess"]["tile_cache_size"]),
+    }
+
+
+def traced(torch, what: str, e2e_s: float, **kw) -> None:
+    """Trace one more ``tohr(**kw)`` and log device time by kernel and the idle share."""
+    from floodsr_tpu_torch.tohr import tohr
+
+    prof = device_profile(torch, lambda: tohr(**kw))
+    prof["device_idle_share_of_timed_run"] = 1.0 - prof["device_busy_s"] / e2e_s
+    log(f"[profile] {what} {json.dumps(prof)}")
+
+
+def phase_policies(torch, seed: int, size: int, tmp: Path, with_profile: bool = False) -> dict:
+    """The flagship scene under ``bfloat16`` and ``mixed`` against ``float32``."""
+    dem_fp, depth_fp = scene_inputs(tmp, seed, size, tag="_policy")
+    runs = {}
+    for dtype in ("float32", "bfloat16", "mixed"):
+        kw = dict(
+            model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, depth_lr_fp=depth_fp,
+            dem_hr_fp=dem_fp, output_fp=tmp / f"policy_{dtype}.tif", device="cuda",
+            engine_options={"compute_dtype": dtype},
+        )
+        runs[dtype] = timed_tohr(torch, **kw)
+        if with_profile and dtype != "float32":
+            traced(torch, f"{dtype} scene", runs[dtype]["e2e_s"], **kw)
+    want_route = {"float32": "tensor", "bfloat16": "bf16", "mixed": "tensor"}
+    out = {}
+    for dtype, run in runs.items():
+        k1 = run["routes"]["hr_tail"]
+        expected = {**dict.fromkeys(k1, 0), want_route[dtype]: SCENE_K1_CALLS}
+        if k1 != expected or run["counts"]["tile_stats"] != SCENE_K2_LAUNCHES:
+            raise AssertionError(
+                f"{dtype} scene: hr_tail by route {k1} (expected {expected}), "
+                f"tile_stats {run['counts']['tile_stats']} (expected {SCENE_K2_LAUNCHES})"
+            )
+        err = rmse_m(run["pred"], runs["float32"]["pred"])
+        if dtype != "float32" and not 0.0 < err <= POLICY_RMSE_CEILING_M:
+            raise AssertionError(
+                f"{dtype} scene: RMSE {err} m against the f32 scene, ceiling {POLICY_RMSE_CEILING_M}"
+            )
+        out[dtype] = {
+            "e2e_s": run["e2e_s"], "exec_s": run["timings"]["exec_s"],
+            "finish_s": run["timings"]["finish_s"], "rmse_vs_f32_m": err,
+            "max_abs_vs_f32_m": float(np.abs(run["pred"] - runs["float32"]["pred"]).max()),
+            "hr_tail_by_route": k1,
+        }
+    log(f"[policies] {size}x{size} flagship scene, {runs['float32']['tiles']} tiles {json.dumps(out)}")
+    policies_card_vs_cpu(tmp)
+    return {"bf16_launches": runs["bfloat16"]["routes"]["hr_tail"]["bf16"], **out}
+
+
+def policies_card_vs_cpu(tmp: Path) -> None:
+    """Each policy on the card against ``device="cpu"`` on a regression case.
+
+    On the card a bf16 stage's products run as TF32 on the tensor cores, on the
+    CPU as f32: both exact for bf16 values, so the two differ only by flipped
+    bf16 roundings (f32 sums in another order). Held to a quarter of the
+    policy's own distance to f32, on the trained test artifact (the flagship's
+    random weights amplify a single flip across the whole range).
+    """
+    from floodsr_tpu_torch.io import read_raster
+    from floodsr_tpu_torch.tohr import tohr
+
+    case_dir = DATA / "synth_mersch"
+    spec = json.loads((case_dir / "case_spec.json").read_text())
+    model_fp = DATA / spec.get("model_artifact", "_artifacts/model_infer_test.fsrz")
+
+    def run(dtype: str, device: str) -> np.ndarray:
+        out_fp = tmp / f"mersch_{dtype}_{device}.tif"
+        tohr(
+            model_version="ResUNet_16x_DEM", model_fp=model_fp, output_fp=out_fp, device=device,
+            depth_lr_fp=case_dir / spec["inputs"]["lowres_fp"],
+            dem_hr_fp=case_dir / spec["inputs"]["dem_fp"],
+            engine_options={"compute_dtype": dtype, "output_transfer": "float32"},
+        )
+        return read_raster(out_fp)[0]
+
+    f32 = run("float32", "cuda")
+    report = {}
+    for dtype in ("bfloat16", "mixed"):
+        card, cpu = run(dtype, "cuda"), run(dtype, "cpu")
+        gap, err = rmse_m(card, f32), rmse_m(card, cpu)
+        report[dtype] = {"rmse_card_vs_cpu_m": err, "rmse_vs_f32_m": gap}
+        if not (gap > 0.0 and err < 0.25 * gap):
+            raise AssertionError(
+                f"{dtype} on the card against the CPU on {case_dir.name}: RMSE {err} m, "
+                f"the policy's distance to f32 {gap} m"
+            )
+    log(f"[policies] {case_dir.name}, the card against device='cpu' {json.dumps(report)}")
+
+
+def phase_finish(torch, seed: int, size: int, tmp: Path) -> None:
+    """``uint12`` and the device postprocess on a scene resampled onto its DEM's grid."""
+    dem_size = size * 15 // 16  # 3840 of 4096: the DEM's cell is 16/15 of the model's
+    dem_fp, depth_fp = scene_inputs(tmp, seed + 300, size, tag="_finish", dem_size=dem_size)
+
+    def run(transfer: str, device_post: bool, warm: bool = False) -> dict:
+        os.environ["FLOODSR_DEVICE_POSTPROC"] = "1" if device_post else "0"
+        try:
+            return timed_tohr(
+                torch, warm=warm, model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP,
+                depth_lr_fp=depth_fp, dem_hr_fp=dem_fp, device="cuda",
+                output_fp=tmp / f"finish_{transfer}_{int(device_post)}.tif",
+                engine_options={"output_transfer": transfer},
+            )
+        finally:
+            os.environ.pop("FLOODSR_DEVICE_POSTPROC", None)
+
+    runs = {
+        ("uint16", True): run("uint16", True, warm=True),
+        ("uint16", False): run("uint16", False),
+        ("float32", True): run("float32", True),
+        ("float32", False): run("float32", False),
+        ("uint12", True): run("uint12", True),
+        ("uint12", False): run("uint12", False),
+    }
+    step16, step12 = 5.0 / 65535.0, 5.0 / 4095.0
+    for key, r in runs.items():
+        if r["pred"].shape != (dem_size, dem_size):
+            raise AssertionError(f"finish {key}: output {r['pred'].shape}, DEM grid {dem_size}")
+        # The device masks before it requantizes, so a kept depth may come
+        # back half a code under the threshold; nothing lower survives.
+        floor = 1e-3 - {"float32": 0.0, "uint16": step16, "uint12": step12}[key[0]]
+        if ((r["pred"] > 0) & (r["pred"] < floor)).any():
+            raise AssertionError(f"finish {key}: depths under the low-depth mask survived")
+    ref = runs[("float32", True)]["pred"]
+    # uint12 against float32, both through the device postprocess: within one
+    # 12-bit step (half a step of the 12-bit code, the uint16 codes before and
+    # after the resample, f32 lerp rounding)
+    err12 = float(np.abs(runs[("uint12", True)]["pred"] - ref).max())
+    if not err12 <= step12 + 1e-6:  # f32 rounding of the step itself
+        raise AssertionError(f"uint12 vs float32: max |diff| {err12} > max_depth/4095 = {step12}")
+    # device postprocess against the host resampler, the switch off
+    # (uint12: a 12-bit code taken before the lerp on one side and after it on
+    # the other, so up to two of its steps)
+    gates = {"float32": 1e-5, "uint16": step16 + 1e-5, "uint12": 2 * step12}
+    errs = {}
+    for transfer, gate in gates.items():
+        dev, host = runs[(transfer, True)]["pred"], runs[(transfer, False)]["pred"]
+        # a pixel at the low-depth threshold may fall on either side of it
+        both = (dev >= 1e-3) == (host >= 1e-3)
+        errs[transfer] = float(np.abs(dev - host)[both].max())
+        if not (errs[transfer] <= gate and float(np.mean(both)) > 0.9999):
+            raise AssertionError(
+                f"device postprocess vs host resampler ({transfer}): max |diff| {errs[transfer]} "
+                f"> {gate}, or {float(np.mean(~both))} of the pixels masked on one side only"
+            )
+    report = {
+        f"{transfer}_{'device' if dev else 'host'}": {
+            k: r["timings"][k]
+            for k in ("finish_s", "device_post_s", "d2h_wait_s", "d2h_bytes", "host_dequant_s",
+                      "host_resample_s", "host_sink_s")
+        } | {"e2e_s": r["e2e_s"]}
+        for (transfer, dev), r in runs.items()
+    }
+    log(
+        f"[finish] {size}x{size} model grid onto a {dem_size}x{dem_size} DEM grid: max |uint12 - "
+        f"float32| {err12:.3e} m (step {step12:.3e}); device postprocess vs host resampler "
+        f"{json.dumps(errs)} (gates {json.dumps(gates)})"
+    )
+    log(f"[finish] stage seconds {json.dumps(report)}")
+
+
+def phase_onnx(torch, seed: int, size: int, tmp: Path, with_profile: bool = False) -> dict:
+    """The replica graph: interpreter, converted graph and torch module; two scenes."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from onnx_replica import HR_TILE, LR_TILE, build_reference_replica
+
+    from floodsr_tpu_torch.device import set_strict_f32
+    from floodsr_tpu_torch.nn.checkpoint import load_artifact
+    from floodsr_tpu_torch.nn.onnx_convert import GraphProgram, convert_onnx_to_fsrz
+    from floodsr_tpu_torch.nn.onnx_exec import OnnxGraphExecutor
+    from floodsr_tpu_torch.nn.onnx_reader import count_parameters, load_model
+
+    t0 = time.perf_counter()
+    data, torch_net = build_reference_replica(seed=seed, f=40)
+    onnx_fp, fsrz_fp = tmp / "replica.onnx", tmp / "replica.fsrz"
+    onnx_fp.write_bytes(data)
+    convert_onnx_to_fsrz(onnx_fp, fsrz_fp)
+    model = load_model(onnx_fp)
+    n_params = count_parameters(model)
+    build_s = time.perf_counter() - t0
+
+    # A batch of tiles through the three: full f32 everywhere (TF32 off).
+    set_strict_f32()
+    rng = np.random.default_rng(seed + 400)
+    depth = torch.from_numpy(rng.uniform(0, 1, (4, LR_TILE, LR_TILE, 1)).astype(np.float32)).cuda()
+    dem = torch.from_numpy(rng.uniform(0, 1, (4, HR_TILE, HR_TILE, 1)).astype(np.float32)).cuda()
+    art = load_artifact(fsrz_fp)
+    edge = art["manifest"]["graph_output_edge"]
+    program = GraphProgram(art["manifest"]["graph_ir"], art["params"], depth.device)
+    executor = OnnxGraphExecutor(model, depth.device)
+    with torch.no_grad():
+        want = torch_net.cuda()(depth, dem)
+    interp = executor({"depth_lr": depth, "dem_hr": dem})["depth_hr_pred"]
+    graph = program({"depth_lr": depth, "dem_hr": dem}, [edge])[edge]
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    errs = {
+        "interpreter_vs_module": (interp - want).abs().max().item(),
+        "converted_vs_module": (graph - want).abs().max().item(),
+        "converted_vs_interpreter": (graph - interp).abs().max().item(),
+    }
+    # f32 sums in cuDNN's order on each side (the converted graph folds the
+    # batch norms into its weights and runs channels-last): 1e-4 of the range
+    if not (tuple(want.shape) == (4, HR_TILE, HR_TILE, 1) and max(errs.values()) <= 1e-4 * scale):
+        raise AssertionError(f"onnx replica on a batch of tiles: {errs} > 1e-4 * {scale}")
+    interp_ms = time_ms(torch, lambda: executor({"depth_lr": depth, "dem_hr": dem}), reps=3, warmup=1)
+    graph_ms = time_ms(torch, lambda: program({"depth_lr": depth, "dem_hr": dem}, [edge]), reps=3, warmup=1)
+    del program, executor, interp, graph, want
+    torch_net.cpu()
+    torch.cuda.empty_cache()
+
+    dem_fp, depth_fp = scene_inputs(tmp, seed + 401, size, tag="_onnx")
+    runs = {}
+    for name, fp in (("onnx", onnx_fp), ("converted", fsrz_fp)):
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(
+            model_version="ResUNet_16x_DEM", model_fp=fp, depth_lr_fp=depth_fp,
+            dem_hr_fp=dem_fp, output_fp=tmp / f"onnx_{name}.tif", device="cuda",
+        )
+        runs[name] = timed_tohr(torch, **kw)
+        runs[name]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        if with_profile:
+            traced(torch, f"onnx scene ({name})", runs[name]["e2e_s"], **kw)
+    tiles = runs["onnx"]["tiles"]
+    chunks = -(-tiles // 8)  # one whole forward, and one K2 launch, per chunk of 8 tiles
+    for name, run in runs.items():
+        counts = run["counts"]
+        if counts["hr_tail"] != 0 or counts["tile_stats"] != chunks or counts["relax_step"] != 0:
+            raise AssertionError(
+                f"onnx scene ({name}): launches {counts}; expected tile_stats {chunks}, no other"
+            )
+        if run["routes"]["tile_stats"]["one_read"] != chunks:
+            raise AssertionError(f"onnx scene ({name}): tile_stats by route {run['routes']['tile_stats']}")
+        if run["pred"].shape != (size, size) or not float(run["pred"].max()) > 0.0:
+            raise AssertionError(f"onnx scene ({name}): empty or misshapen output")
+    err = rmse_m(runs["onnx"]["pred"], runs["converted"]["pred"])
+    if not err <= 1e-4:
+        raise AssertionError(f"onnx scene: interpreter vs converted graph RMSE {err} m > 1e-4")
+    report = {
+        name: {"e2e_s": r["e2e_s"], "exec_s": r["timings"]["exec_s"],
+               "finish_s": r["timings"]["finish_s"], "peak_mib": r["peak_mib"]}
+        for name, r in runs.items()
+    }
+    log(
+        f"[onnx] replica f=40, {n_params:,} parameters, built and converted in {build_s:.2f} s; "
+        f"4 tiles: {json.dumps(errs)} of max |out| {scale:.3f}; interpreter {interp_ms:.1f} ms, "
+        f"converted graph {graph_ms:.1f} ms a batch of 4"
+    )
+    log(
+        f"[onnx] {size}x{size} scene, {tiles} tiles, single-phase, {chunks} K2 launches, K1 none: "
+        f"{json.dumps(report)}; interpreter vs converted RMSE {err:.3e} m"
+    )
+    return {"launches": runs["onnx"]["counts"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace a third scene run with torch.profiler (device time by kernel)",
+        help="also trace one more run of the f32, bfloat16, mixed, CostGrow and ONNX scenes "
+             "with torch.profiler (device time by kernel, the device's idle share)",
     )
     args = parser.parse_args(argv)
 
@@ -1366,8 +1853,10 @@ def main(argv=None) -> int:
     device = phase_device(torch)
     phase_build()
     rng = np.random.default_rng(args.seed)
-    kernels = [phase_tile_stats(torch, rng), phase_hr_tail(torch, rng)]
-    phase_tohr_cases()
+    k2 = phase_tile_stats(torch, rng)
+    k1, k1_bf16 = phase_hr_tail(torch, rng)
+    kernels = [k2, k1]
+    phase_tohr_cases(torch)
     scene = phase_scene(torch, args.seed, SCENE_SIZE, args.profile)
     for k in kernels:
         k["launches"] = scene["launches"][k["name"]]
@@ -1383,6 +1872,9 @@ def main(argv=None) -> int:
         stream = phase_stream(torch, args.seed, SCENE_SIZE, tmp)
         serve = phase_serve(torch, args.seed, SCENE_SIZE, tmp, stream)
         phase_cli(torch, args.seed, tmp)
+        policies = phase_policies(torch, args.seed, SCENE_SIZE, tmp, args.profile)
+        phase_finish(torch, args.seed, SCENE_SIZE, tmp)
+        onnx = phase_onnx(torch, args.seed, SCENE_SIZE, tmp, args.profile)
     # Each serving path's own launches, read around that path alone.
     for k in kernels:
         k["launches_stream"] = stream["launches"][k["name"]]
@@ -1392,6 +1884,15 @@ def main(argv=None) -> int:
         )
         if k["name"] != "relax_step" and not (k["launches_stream"] > 0 and k["launches_serve"] > 0):
             raise AssertionError(f"{k['name']} was not launched on a serving path: {k}")
+        k["launches_onnx"] = onnx["launches"][k["name"]]
+    if not kernels[0]["launches_onnx"] > 0:
+        raise AssertionError(f"tile_stats was not launched on the ONNX path: {kernels[0]}")
+    # K1's bf16 route: its launches are those of the bfloat16 scene.
+    k1_bf16["launches"] = policies["bf16_launches"]
+    k1["bf16_route_ms"], k1["bf16_route_launches"] = k1_bf16["ms"], k1_bf16["launches"]
+    if not k1_bf16["launches"] > 0:
+        raise AssertionError(f"hr_tail's bf16 route was not launched by the bfloat16 scene: {k1_bf16}")
+    kernels.insert(2, k1_bf16)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])

@@ -38,8 +38,9 @@ class Config:
     log_level: str | None = None
     # Engine execution knobs (machine/user preference, not correctness).
     compute_dtype: str = "float32"       # "float32" | "bfloat16" | "mixed"
-    # Output D2H encoding: "uint16" (default, step max_depth/65535),
-    # "float32"; "uint12" is not ported to the torch engine yet.
+    # Output D2H encoding: "uint16" (default, step max_depth/65535), "uint12"
+    # (the codes reduced to 12 bits and packed on the device, step
+    # max_depth/4095, a quarter fewer bytes), "float32".
     output_transfer: str = "uint16"      # "uint16" | "uint12" | "float32"
     input_transfer: str = "uint16"       # "uint16" | "float32" (DEM upload encoding)
     max_batch: int = 8

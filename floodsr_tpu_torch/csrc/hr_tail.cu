@@ -64,12 +64,34 @@
 //        and runs 16 more k8 steps of m64n16k8 against the head's weights.
 //      * A barrier that is not reached within seconds traps, so a protocol
 //        fault shows as a launch error and not as a hang.
+//  - bf16 route (hr_tail_bf16_launch; the same widths): the arithmetic of the
+//    TPU kernel's mode="bf16" (:385-447, _conv3x3_im2col :183-185, _dot
+//    :122-126). Inputs, intermediates, affines, biases and residual adds stay
+//    f32; at the four 3x3 convolutions and at the projection the activated
+//    operand is rounded to bf16 (round to nearest even) and multiplied with
+//    the bf16-rounded weight in ONE pass with f32 accumulation. It is the
+//    same conv_tc_kernel with BF16 = true: one wgmma m64n128k16
+//    .f32.bf16.bf16 per tap and 16-channel chunk in place of six m64n128k8
+//    TF32 products; the patch is staged once as bf16, no lo half, as
+//    plane[channel octet][patch pixel][8 channels] (a 2-byte type has 8
+//    elements in a core-matrix row of 16 bytes, so the tap offsets, SBO and
+//    LBO keep their byte values); the weights come from a bf16 pack
+//    [channel octet][cout][8], 4 KB per chunk and tap. The 1x1 head stays at
+//    three-pass precision, as the TPU kernel keeps it (head_mode "x3"): the
+//    3xTF32 product of the tensor-core route's epilogue, which carries 21
+//    mantissa bits of each operand where the TPU's bf16 split carries 16.
 //  - Direct route (hr_tail_launch; any channel counts): the first version of
 //    this port, f32 FMA on the CUDA cores, six launches (proj, four 3x3, the
 //    head). affine_relu_conv3x3 computes 8 rows x 32 columns x 32 output
 //    channels a block, looping over input channels in chunks of 16 staged in
 //    shared memory; conv1x1 is a tiled pointwise product (128 pixels x 32
 //    channels a block).
+//  - Direct bf16 route (hr_tail_bf16_direct_launch; any channel counts): the
+//    direct kernels with the activated operand and the weight rounded to
+//    bf16 in registers (__float2bfloat16_rn and back) before the f32 FMA, at
+//    the four 3x3 convolutions and the projection; the head stays an f32 FMA
+//    product. It carries the bf16 policy at widths the tensor cores do not
+//    take.
 //
 // What bounds it on the card: operations. 10.64 GMAC (21.3 GFLOP) per
 // 128x128 tile at the flagship widths. On the tensor-core route every MAC is
@@ -82,8 +104,11 @@
 // needs at peak, three quarters of the SM's 128 bytes a clock before the
 // stagers' and the bulk copies' writes; a block's fill and epilogue are not
 // overlapped with another block's sums (168 registers a thread and 169 KB of
-// shared memory allow one block an SM).
+// shared memory allow one block an SM). The bf16 route does one product per
+// MAC: 170.2 GFLOP at 8 tiles over 989 TFLOP/s dense bf16 is 0.172 ms, and its
+// four launches still round-trip the f32 intermediates through device memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +124,14 @@ constexpr int CK = 16;   // input channels per shared-memory chunk
 constexpr int PH = TH + 2;
 constexpr int PW = TW + 2;
 
+// Nearest bf16 value (ties to even), as an f32.
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// With BF16 the activated operand and the weight are rounded to bf16 before
+// the f32 FMA (a product of two bf16 values is exact in f32).
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 affine_relu_conv3x3_kernel(const float* xa, int ca, const float* xb, int cb,
                            const float* __restrict__ aff_a,
@@ -142,6 +175,7 @@ affine_relu_conv3x3_kernel(const float* xa, int ca, const float* xb, int cb,
         const float raw =
             gc < ca ? xa[pixel * ca + gc] : xb[pixel * cb + (gc - ca)];
         v = fmaxf(__fadd_rn(__fmul_rn(raw, aff_a[gc]), aff_c[gc]), 0.f);
+        if (BF16) v = bf16_rn(v);
       }
       s_in[ci][py][px] = v;
     }
@@ -152,9 +186,11 @@ affine_relu_conv3x3_kernel(const float* xa, int ca, const float* xb, int cb,
       const int tap = rest / CK;
       const int gc = c0 + ci;
       const int gco = co0 + co;
-      s_w[tap][ci][co] = (gc < cin && gco < cout)
-                             ? w[((size_t)tap * cin + gc) * cout + gco]
-                             : 0.f;
+      float wv = (gc < cin && gco < cout)
+                     ? w[((size_t)tap * cin + gc) * cout + gco]
+                     : 0.f;
+      if (BF16) wv = bf16_rn(wv);
+      s_w[tap][ci][co] = wv;
     }
     __syncthreads();
 
@@ -205,6 +241,7 @@ constexpr int PM = 128;  // pixels per block
 constexpr int PN = 32;   // output channels per block
 constexpr int PK = 16;   // input channels per shared-memory chunk
 
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 conv1x1_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ w, const float* __restrict__ bias,
@@ -234,6 +271,7 @@ conv1x1_kernel(const float* xa, int ca, const float* xb, int cb,
       float v = 0.f;
       if (gp < npix && gk < cin) {
         v = gk < ca ? xa[(size_t)gp * ca + gk] : xb[(size_t)gp * cb + (gk - ca)];
+        if (BF16) v = bf16_rn(v);
       }
       s_x[k][m] = v;
     }
@@ -242,7 +280,9 @@ conv1x1_kernel(const float* xa, int ca, const float* xb, int cb,
       const int k = i / PN;
       const int gk = k0 + k;
       const int gn = n0 + n;
-      s_w[k][n] = (gk < cin && gn < cout) ? w[(size_t)gk * cout + gn] : 0.f;
+      float wv = (gk < cin && gn < cout) ? w[(size_t)gk * cout + gn] : 0.f;
+      if (BF16) wv = bf16_rn(wv);
+      s_w[k][n] = wv;
     }
     __syncthreads();
 #pragma unroll 4
@@ -275,20 +315,32 @@ conv1x1_kernel(const float* xa, int ca, const float* xb, int cb,
 cudaError_t launch_conv3x3(const float* xa, int ca, const float* xb, int cb,
                            const float* a, const float* c, const float* w,
                            const float* bias, const float* res, float* out,
-                           int B, int H, int W, int cout, cudaStream_t stream) {
+                           int B, int H, int W, int cout, bool bf16,
+                           cudaStream_t stream) {
   const int n_cblk = (cout + TC - 1) / TC;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * n_cblk);
-  affine_relu_conv3x3_kernel<<<grid, kThreads, 0, stream>>>(
-      xa, ca, xb, cb, a, c, w, bias, res, out, H, W, cout);
+  if (bf16) {
+    affine_relu_conv3x3_kernel<true><<<grid, kThreads, 0, stream>>>(
+        xa, ca, xb, cb, a, c, w, bias, res, out, H, W, cout);
+  } else {
+    affine_relu_conv3x3_kernel<false><<<grid, kThreads, 0, stream>>>(
+        xa, ca, xb, cb, a, c, w, bias, res, out, H, W, cout);
+  }
   return cudaGetLastError();
 }
 
 cudaError_t launch_conv1x1(const float* xa, int ca, const float* xb, int cb,
                            const float* w, const float* bias, float* out,
-                           long long npix, int cout, cudaStream_t stream) {
+                           long long npix, int cout, bool bf16,
+                           cudaStream_t stream) {
   dim3 grid((unsigned)((npix + PM - 1) / PM), (cout + PN - 1) / PN, 1);
-  conv1x1_kernel<<<grid, kThreads, 0, stream>>>(xa, ca, xb, cb, w, bias, out,
-                                                npix, cout);
+  if (bf16) {
+    conv1x1_kernel<true><<<grid, kThreads, 0, stream>>>(xa, ca, xb, cb, w, bias,
+                                                        out, npix, cout);
+  } else {
+    conv1x1_kernel<false><<<grid, kThreads, 0, stream>>>(xa, ca, xb, cb, w, bias,
+                                                         out, npix, cout);
+  }
   return cudaGetLastError();
 }
 
@@ -325,27 +377,39 @@ constexpr int PIX = PH * PW;
 // quarter-warp writes for two neighbouring pixels then fall into eight
 // different 16-byte bank groups.
 constexpr int PLANE_PIX = PIX + ((2 - PIX % 8) + 8) % 8;
-constexpr int PLANE = PLANE_PIX * 16;     // bytes: [pixel][4 channels]
-constexpr int A_HALF = (CK / 4) * PLANE;  // the hi (or lo) patch
-constexpr int A_STAGE = 2 * A_HALF;       // hi then lo
+constexpr int PLANE = PLANE_PIX * 16;     // bytes: [pixel][one 16-byte row of channels]
 constexpr int NPX = (PW + kPixLanes - 1) / kPixLanes;
+constexpr int QB = N * 16;                // bytes of one plane of weights: [cout][16-byte row]
 
-constexpr int QB = N * 16;             // bytes of one channel quad of weights
-constexpr int B_HALF = (CK / 4) * QB;  // hi (or lo) weights of one ring stage
-constexpr int B_STAGE = 2 * B_HALF;
+// Stage sizes by operand type. A 16-byte row holds 4 TF32 channels or 8 bf16
+// channels, so a 16-channel chunk is four planes of hi and four of lo in
+// 3xTF32, and two planes (one k16 step) in bf16.
+template <bool BF16>
+struct Geo {
+  static constexpr int ROW_CH = BF16 ? 8 : 4;          // channels in a 16-byte row
+  static constexpr int PLANES = CK / ROW_CH;           // planes of one chunk
+  static constexpr int A_HALF = PLANES * PLANE;        // the hi (or only) patch
+  static constexpr int A_STAGE = (BF16 ? 1 : 2) * A_HALF;  // hi then lo
+  static constexpr int B_HALF = PLANES * QB;           // hi (or only) weights of a ring stage
+  static constexpr int B_STAGE = (BF16 ? 1 : 2) * B_HALF;
+  static constexpr int PIPE = 2 * A_STAGE + NB * B_STAGE;  // two patch stages, the ring
+};
 
 constexpr int HEAD_N = 16;                       // output channels of the fused 1x1 head
 constexpr int HEAD_W_BYTES = 2 * N * HEAD_N * 4;  // its hi and lo weights
 constexpr int Y_PLANE = TWX * 16;                // one channel quad of a 64-pixel y tile
 constexpr int Y_HALF = (N / 4) * Y_PLANE;        // the hi (or lo) y tile of one warpgroup
-static_assert(2 * 2 * Y_HALF <= 2 * A_STAGE + NB * B_STAGE,
-              "the head's y tiles must fit the pipeline buffers");
 
-template <bool HEAD>
-constexpr int smem_bytes() {
-  // two patch stages, NB weight stages, the head's weights, 2 + 2 + NB + NB + 1 barriers
-  return 2 * A_STAGE + NB * B_STAGE + (HEAD ? HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
-}
+// Shared-memory plan. PIPE: the bytes before the head's weights: the
+// pipeline's buffers, which with HEAD must also hold the two warpgroups' hi
+// and lo y tiles once they are idle. BYTES: the pipeline, the head's weights,
+// 2 + 2 + NB + NB + 1 barriers.
+template <bool HEAD, bool BF16>
+struct Smem {
+  static constexpr int PIPE =
+      (HEAD && 4 * Y_HALF > Geo<BF16>::PIPE) ? 4 * Y_HALF : Geo<BF16>::PIPE;
+  static constexpr int BYTES = PIPE + (HEAD ? HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -458,6 +522,42 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// One k16 step in bf16: both operands K-major from shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -486,12 +586,18 @@ __device__ __forceinline__ float act(float raw, float a, float c) {
 // [hi|lo][CK/4][N][4] per (chunk, tap) of x, then one per chunk of x2. Every
 // channel count is a multiple of 4, ca + cb and c2a + c2b multiples of CK.
 //
+// With BF16 every operand of these products (the activated patch, the raw 1x1
+// input, the weights) is its nearest bf16 value and a product is one pass:
+// the patch is staged as plane[channel octet][pixel][8 channels] bf16 and
+// wpack holds one slab [CK/8][N][8] of bf16 per (chunk, tap). Sums, biases and
+// the residual stay f32, and so does the head below.
+//
 // With HEAD, the result y is not stored: out[b, y, x, :16] = y @ head_w +
 // head_b. Each warpgroup writes a 64-pixel tile of y, split into
 // hi and lo, over the idle pipeline buffers in the A-operand layout and
 // multiplies it with the head's hi/lo weights (head_pack: N/CK slabs of
 // [hi|lo][CK/4][16][4], loaded once at the start) in 16 more k8 steps.
-template <bool HEAD>
+template <bool HEAD, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ aff_a, const float* __restrict__ aff_c,
@@ -500,12 +606,17 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ bias2, const float* res,
                const float* __restrict__ head_pack, const float* __restrict__ head_bias,
                float* out, int H, int W) {
+  using G = Geo<BF16>;
+  constexpr int A_STAGE = G::A_STAGE;
+  constexpr int A_HALF = G::A_HALF;
+  constexpr int B_STAGE = G::B_STAGE;
+  constexpr int B_HALF = G::B_HALF;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* a_buf = smem;
   unsigned char* b_buf = smem + 2 * A_STAGE;
   const uint32_t a_smem = smem_u32(a_buf);
   const uint32_t b_smem = smem_u32(b_buf);
-  const uint32_t h_smem = b_smem + NB * B_STAGE;  // the head's weights, hi then lo per slab
+  const uint32_t h_smem = a_smem + Smem<HEAD, BF16>::PIPE;  // the head's weights, hi then lo per slab
   const uint32_t bars = h_smem + (HEAD ? HEAD_W_BYTES : 0);
   const uint32_t full_a = bars;             // [2] the stagers' arrivals
   const uint32_t empty_a = bars + 16;       // [2] one arrival per consumer warp
@@ -580,18 +691,27 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         const uint32_t a_tap = a_rows + (ky * PW + kx) * 16;
         const uint32_t b_hi = b_smem + sb * B_STAGE;
         wgmma_fence();
+        if constexpr (BF16) {
+          // One k16 step covers the chunk: the two octet planes are the two
+          // core matrices along K.
+          const uint64_t db = smem_desc(b_hi, QB, 128);
 #pragma unroll
-        for (int kk = 0; kk < CK / 8; ++kk) {
-          const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
-          const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
+          for (int mt = 0; mt < 2; ++mt)
+            wgmma_bf16(acc[mt], smem_desc(a_tap + mt * PW * 16, PLANE, 128), db);
+        } else {
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
-            const uint64_t dah = smem_desc(a0, PLANE, 128);
-            const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
-            wgmma_tf32(acc[mt], dal, dbh);  // small terms first
-            wgmma_tf32(acc[mt], dah, dbl);
-            wgmma_tf32(acc[mt], dah, dbh);
+          for (int kk = 0; kk < CK / 8; ++kk) {
+            const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
+            const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
+              const uint64_t dah = smem_desc(a0, PLANE, 128);
+              const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
+              wgmma_tf32(acc[mt], dal, dbh);  // small terms first
+              wgmma_tf32(acc[mt], dah, dbl);
+              wgmma_tf32(acc[mt], dah, dbh);
+            }
           }
         }
         wgmma_commit();
@@ -754,7 +874,10 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         fa = *reinterpret_cast<const float4*>(aff_a + gc);
         fc = *reinterpret_cast<const float4*>(aff_c + gc);
       }
-      unsigned char* hi_plane = a_buf + sa * A_STAGE + q * PLANE;
+      // TF32: plane q, a 16-byte row of 4 channels. bf16: plane q/2, this
+      // quad's 8 bytes of the 16-byte row of 8 channels.
+      unsigned char* hi_plane = BF16 ? a_buf + sa * A_STAGE + (q >> 1) * PLANE + (q & 1) * 8
+                                     : a_buf + sa * A_STAGE + q * PLANE;
       // Two patch rows a step, so six loads are in flight per thread.
       for (int py0 = 0; py0 < PH; py0 += 2) {
         float4 raw[2][NPX];
@@ -788,14 +911,22 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
               v.w = act(v.w, fa.w, fc.w);
             }
             if (!ok[r][j]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-            float4 hi, lo;
-            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
-            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
-            hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
-            hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
             unsigned char* dst = hi_plane + ((py0 + r) * PW + px) * 16;
-            *reinterpret_cast<float4*>(dst) = hi;
-            *reinterpret_cast<float4*>(dst + A_HALF) = lo;
+            if constexpr (BF16) {
+              // round to nearest even; the lower address holds the lower channel
+              __nv_bfloat162 h[2];
+              h[0] = __floats2bfloat162_rn(v.x, v.y);
+              h[1] = __floats2bfloat162_rn(v.z, v.w);
+              *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
+            } else {
+              float4 hi, lo;
+              hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+              hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+              hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
+              hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
+              *reinterpret_cast<float4*>(dst) = hi;
+              *reinterpret_cast<float4*>(dst + A_HALF) = lo;
+            }
           }
         }
       }
@@ -806,14 +937,14 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
   }
 }
 
-template <bool HEAD>
+template <bool HEAD, bool BF16>
 cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float* a,
                    const float* c, const float* x2a, int c2a, const float* x2b, int c2b,
                    const float* wpack, const float* bias, const float* bias2,
                    const float* res, const float* head_pack, const float* head_bias,
                    float* out, int B, int H, int W, cudaStream_t stream) {
-  auto kern = conv_tc_kernel<HEAD>;
-  constexpr int smem = smem_bytes<HEAD>();
+  auto kern = conv_tc_kernel<HEAD, BF16>;
+  constexpr int smem = Smem<HEAD, BF16>::BYTES;
   // The opt-in to more than 48 KB of dynamic shared memory holds for the life
   // of the process: set it at this kernel's first launch on each device.
   constexpr int kMaxDevices = 64;
@@ -841,49 +972,70 @@ enum { P_F1_W1, P_F1_W2_PW, P_F2_W1, P_F2_W2, P_HEAD_W, N_PACKS };
 
 // Direct route. sr [B,H,W,ca], dem [B,H,W,cb]; weights: N_WEIGHTS device pointers in
 // WEIGHT_KEYS order; buf_p and buf_y are [B,H,W,cm] scratch; out [B,H,W,ch].
-extern "C" int hr_tail_launch(const float* sr, const float* dem, int B, int H,
-                              int W, int ca, int cb, int cm, int ch,
-                              const void* const* weights, float* buf_p,
-                              float* buf_y, float* out, void* stream_ptr) {
+// With bf16 the four 3x3 convolutions and the projection round their operands
+// to bf16; the head does not.
+static int direct_chain(const float* sr, const float* dem, int B, int H, int W,
+                        int ca, int cb, int cm, int ch,
+                        const void* const* weights, float* buf_p, float* buf_y,
+                        float* out, bool bf16, void* stream_ptr) {
   const float* const* wt = reinterpret_cast<const float* const*>(weights);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long long npix = (long long)B * H * W;
   cudaError_t err;
   // p = proj(x)
   err = launch_conv1x1(sr, ca, dem, cb, wt[F1_PW], wt[F1_PB], buf_p, npix, cm,
-                       stream);
+                       bf16, stream);
   if (err != cudaSuccess) return (int)err;
   // y = conv1(relu(bn1 x))
   err = launch_conv3x3(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], wt[F1_W1],
-                       wt[F1_B1], nullptr, buf_y, B, H, W, cm, stream);
+                       wt[F1_B1], nullptr, buf_y, B, H, W, cm, bf16, stream);
   if (err != cudaSuccess) return (int)err;
   // y1 = conv2(relu(bn2 y)) + p, in place over p
   err = launch_conv3x3(buf_y, cm, nullptr, 0, wt[F1_A2], wt[F1_C2], wt[F1_W2],
-                       wt[F1_B2], buf_p, buf_p, B, H, W, cm, stream);
+                       wt[F1_B2], buf_p, buf_p, B, H, W, cm, bf16, stream);
   if (err != cudaSuccess) return (int)err;
   // z = conv1(relu(bn1 y1))
   err = launch_conv3x3(buf_p, cm, nullptr, 0, wt[F2_A1], wt[F2_C1], wt[F2_W1],
-                       wt[F2_B1], nullptr, buf_y, B, H, W, cm, stream);
+                       wt[F2_B1], nullptr, buf_y, B, H, W, cm, bf16, stream);
   if (err != cudaSuccess) return (int)err;
   // y2 = conv2(relu(bn2 z)) + y1, in place over y1
   err = launch_conv3x3(buf_y, cm, nullptr, 0, wt[F2_A2], wt[F2_C2], wt[F2_W2],
-                       wt[F2_B2], buf_p, buf_p, B, H, W, cm, stream);
+                       wt[F2_B2], buf_p, buf_p, B, H, W, cm, bf16, stream);
   if (err != cudaSuccess) return (int)err;
-  // out = head(y2)
+  // out = head(y2), f32 on either route
   err = launch_conv1x1(buf_p, cm, nullptr, 0, wt[HEAD_W], wt[HEAD_B], out, npix,
-                       ch, stream);
+                       ch, false, stream);
   return (int)err;
 }
 
-// Tensor-core route: the same chain, every convolution through
+extern "C" int hr_tail_launch(const float* sr, const float* dem, int B, int H,
+                              int W, int ca, int cb, int cm, int ch,
+                              const void* const* weights, float* buf_p,
+                              float* buf_y, float* out, void* stream_ptr) {
+  return direct_chain(sr, dem, B, H, W, ca, cb, cm, ch, weights, buf_p, buf_y, out,
+                      false, stream_ptr);
+}
+
+extern "C" int hr_tail_bf16_direct_launch(const float* sr, const float* dem, int B,
+                                          int H, int W, int ca, int cb, int cm,
+                                          int ch, const void* const* weights,
+                                          float* buf_p, float* buf_y, float* out,
+                                          void* stream_ptr) {
+  return direct_chain(sr, dem, B, H, W, ca, cb, cm, ch, weights, buf_p, buf_y, out,
+                      true, stream_ptr);
+}
+
+// Tensor-core routes: the same chain, every convolution through
 // tc::conv_tc_kernel. Needs cm == 128, ch == 16, ca % 4 == 0, cb % 4 == 0 and
 // (ca + cb) % 16 == 0 (the wrapper checks). weights as above (the affines and
-// biases are read from it); packs: tc::N_PACKS device pointers to the hi/lo
-// weight slabs in TC_PACK_KEYS order.
-extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
-                                 int W, int ca, int cb, const void* const* weights,
-                                 const void* const* packs, float* buf_p,
-                                 float* buf_y, float* out, void* stream_ptr) {
+// biases are read from it); packs: tc::N_PACKS device pointers in
+// TC_PACK_KEYS order: for the 3xTF32 route the hi/lo TF32 weight slabs, for
+// the bf16 route (BF16) bf16 slabs for the four convolutions and the same
+// hi/lo TF32 slabs for the head.
+template <bool BF16>
+static int tc_chain(const float* sr, const float* dem, int B, int H, int W, int ca,
+                    int cb, const void* const* weights, const void* const* packs,
+                    float* buf_p, float* buf_y, float* out, void* stream_ptr) {
   const float* const* wt = reinterpret_cast<const float* const*>(weights);
   const float* const* pk = reinterpret_cast<const float* const*>(packs);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -891,23 +1043,39 @@ extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H
   const float* none = nullptr;
   cudaError_t err;
   // y = conv1(relu(bn1 x))
-  err = tc::launch<false>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
+  err = tc::launch<false, BF16>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
                                 pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y, B, H,
                                 W, stream);
   if (err != cudaSuccess) return (int)err;
   // y1 = conv2(relu(bn2 y)) + proj(x): the projection is ten more chunks of K
-  err = tc::launch<false>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
+  err = tc::launch<false, BF16>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
                                 pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
                                 buf_p, B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
   // z = conv1(relu(bn1 y1))
-  err = tc::launch<false>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
+  err = tc::launch<false, BF16>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
                                 pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y, B, H,
                                 W, stream);
   if (err != cudaSuccess) return (int)err;
   // out = head(conv2(relu(bn2 z)) + y1): y2 never reaches device memory
-  err = tc::launch<true>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
-                                      pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
-                                      wt[HEAD_B], out, B, H, W, stream);
+  err = tc::launch<true, BF16>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
+                               pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
+                               wt[HEAD_B], out, B, H, W, stream);
   return (int)err;
+}
+
+extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
+                                 int W, int ca, int cb, const void* const* weights,
+                                 const void* const* packs, float* buf_p,
+                                 float* buf_y, float* out, void* stream_ptr) {
+  return tc_chain<false>(sr, dem, B, H, W, ca, cb, weights, packs, buf_p, buf_y, out,
+                         stream_ptr);
+}
+
+extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int H,
+                                   int W, int ca, int cb, const void* const* weights,
+                                   const void* const* packs, float* buf_p,
+                                   float* buf_y, float* out, void* stream_ptr) {
+  return tc_chain<true>(sr, dem, B, H, W, ca, cb, weights, packs, buf_p, buf_y, out,
+                        stream_ptr);
 }

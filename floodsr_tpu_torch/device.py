@@ -31,8 +31,13 @@ def set_strict_f32() -> None:
 
     cuDNN runs float32 convolutions in TF32 by default, about three decimal
     digits: the same silent precision loss the JAX package guards against on
-    the TPU by pinning the convolution precision. The port's only precision
-    policy is f32, so both switches are set off explicitly.
+    the TPU by pinning the convolution precision. Both switches are set off
+    explicitly, so every f32 stage of every precision policy computes in full
+    f32; a bf16 stage allows TF32 for its own products only, where it is exact,
+    and restores these settings (``nn.resunet.bf16_products``). A bf16 matmul,
+    should one run, accumulates in f32 as the policies assume: the reduced
+    precision reduction is off too.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -3,7 +3,8 @@
 Port of the JAX package's ``engine/providers.py`` for the PyTorch/CUDA stack:
 the torch version and its CUDA runtime, whether CUDA is available, the visible
 devices, the raster-I/O backend state, and the state of the hand-written
-kernels' build (``nvcc`` found, libraries present). A diagnosis touches no
+kernels' build (``nvcc`` found, libraries present, the bf16 route of ``hr_tail``
+among them). A diagnosis touches no
 device beyond asking its properties and builds nothing.
 """
 
@@ -56,16 +57,22 @@ def get_io_info() -> dict[str, object]:
 
 
 def get_kernel_info() -> dict[str, object]:
-    """Whether ``nvcc`` is found and which kernel libraries are built."""
+    """Whether ``nvcc`` is found, which kernel libraries are built, and whether
+    the built ``hr_tail`` library holds the bf16 route (a library built from an
+    older source does not; it is rebuilt at its next use)."""
     from floodsr_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
 
     try:
         nvcc = _build.nvcc_path()
     except RuntimeError:
         nvcc = None
+    hr_tail_lib = _build.library_path("hr_tail")
     return {
         "nvcc": nvcc,
         "built": [n for n in KERNEL_SOURCES if _build.library_path(n).exists()],
+        "hr_tail_bf16": (
+            hr_tail_lib.exists() and b"hr_tail_bf16_launch" in hr_tail_lib.read_bytes()
+        ),
     }
 
 
@@ -94,6 +101,7 @@ def doctor_info() -> dict[str, object]:
         "cuda_total_memory_bytes": [d["total_memory_bytes"] for d in devices],
         "nvcc_found": kernel_info["nvcc"] is not None,
         "kernels_built": kernel_info["built"],
+        "hr_tail_bf16_built": kernel_info["hr_tail_bf16"],
         "io_backend": io_info["backend"],
         "io_native_codec": io_info["native_codec"],
     }

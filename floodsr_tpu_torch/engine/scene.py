@@ -1,7 +1,10 @@
-"""Whole-scene two-phase executor in eager PyTorch.
+"""Whole-scene executor in eager PyTorch: two-phase, or single-phase for a graph.
 
-Port of the JAX package's ``engine/scene.py`` two-phase executor (:378-427).
-Everything stays on the device between one upload and one download:
+Port of the JAX package's ``engine/scene.py``: the two-phase executor
+(:378-427) for the native ResUNet, which splits into a trunk and a tail, and
+the single-phase one (``scene_fn``, :429-465) for a model that runs whole (an
+ONNX graph, interpreted or converted). Everything stays on the device between
+one upload and one download. Two-phase:
 
     phase 1, over ``trunk_chunk``-tile batches:
         gather tiles by index arithmetic → log1p-scale the depth →
@@ -12,6 +15,10 @@ Everything stays on the device between one upload and one download:
         ResUNet tail (the ``hr_tail`` CUDA kernel) → invert to meters →
         feather-weight → add into the scene mosaic, tile by tile in grid order
     finish: weight-normalize → clip → optional uint16 quantization.
+
+Single-phase, over ``chunk``-tile batches: gather → log1p-scale the depth →
+per-tile DEM stats (the ``tile_stats`` kernel) → normalize → one whole forward →
+invert → mosaic; then the same finish.
 
 Tiles are added to the mosaic in the same order as the JAX package's
 ``fori_loop`` (grid order), so the float sums keep the same order. The JAX
@@ -163,7 +170,12 @@ def scene_indices(grid: dict[str, np.ndarray | int]) -> dict[str, np.ndarray]:
 
 
 class SceneExecutor:
-    """Two-phase scene executor for one scene geometry.
+    """Scene executor for one scene geometry.
+
+    Two-phase over ``model.trunk`` / ``model.tail`` (under the ``precision``
+    policy) unless ``forward_fn(depth_nhwc, dem_nhwc) -> pred_nhwc`` is given:
+    then single-phase, one whole forward per ``chunk`` of tiles, and ``model``
+    may be ``None`` (``cfg`` must then name the tile geometry).
 
     ``executor(depth_pad, dem_pad, idx)`` takes the LR depth and HR DEM
     zero-padded to ``scene_shape`` (HR) / ``scene_shape // scale`` (LR), on
@@ -185,9 +197,16 @@ class SceneExecutor:
         trunk_chunk: int = DEFAULT_TRUNK_CHUNK,
         transfer_dtype: str = "uint16",
         cfg=None,
+        precision=None,
+        forward_fn=None,
     ):
         assert transfer_dtype in {"uint16", "float32"}, transfer_dtype
+        assert model is not None or (forward_fn is not None and cfg is not None), (
+            "a scene executor needs a model to split, or forward_fn and cfg"
+        )
         self.model = model
+        self.precision = precision
+        self.forward_fn = forward_fn
         self.cfg = cfg if cfg is not None else model.cfg
         self.scene_shape = (int(scene_shape[0]), int(scene_shape[1]))
         self.overlap_hr = int(overlap_hr)
@@ -267,7 +286,26 @@ class SceneExecutor:
             return torch.round(out * q).to(torch.uint16)
         return out
 
-    # -- the two phases -----------------------------------------------------
+    # -- the phases ---------------------------------------------------------
+
+    def _chunk_indices(self, idx: dict, dev):
+        """Per-tile flags and weights on the device, origins on the host."""
+        flags = {
+            k: torch.from_numpy(np.asarray(idx[k], bool)).to(dev)
+            for k in ("yf", "yl", "xf", "xl")
+        }
+        valid = torch.from_numpy(np.asarray(idx["valid"], np.float32)).to(dev)
+        y0_host = np.asarray(idx["y0"], np.int64).tolist()
+        x0_host = np.asarray(idx["x0"], np.int64).tolist()
+
+        def chunk(s: int, e: int) -> dict:
+            idx_c = {k: v[s:e] for k, v in flags.items()}
+            idx_c["valid"] = valid[s:e]
+            idx_c["y0_host"] = y0_host[s:e]
+            idx_c["x0_host"] = x0_host[s:e]
+            return idx_c
+
+        return chunk
 
     @torch.no_grad()
     def __call__(self, depth_pad: torch.Tensor, dem_pad: torch.Tensor, idx: dict):
@@ -280,10 +318,29 @@ class SceneExecutor:
         n = int(len(idx["y0"]))
         y0 = torch.from_numpy(np.asarray(idx["y0"], np.int64)).to(dev)
         x0 = torch.from_numpy(np.asarray(idx["x0"], np.int64)).to(dev)
+        chunk_idx = self._chunk_indices(idx, dev)
+        stats = torch.empty((n, 3), dtype=torch.float32, device=dev)
+
+        if self.forward_fn is not None:
+            # Single phase — one whole forward per chunk.
+            carry = self._mosaic_init(dev)
+            for s in range(0, n, self.chunk):
+                e = min(n, s + self.chunk)
+                depth_tiles = gather_tiles(
+                    depth_pad, y0[s:e] // scale, x0[s:e] // scale, lr_tile
+                )
+                dem_tiles = gather_tiles(dem_pad, y0[s:e], x0[s:e], tile)
+                depth_norm = scale_depth_log1p(depth_tiles, self.max_depth)
+                p_clip, dem_min, dem_max = dem_tile_stats(dem_tiles, self.dem_pct_clip)
+                dem_norm = normalize_dem_with_stats(dem_tiles, p_clip, dem_min, dem_max)
+                pred_norm = self.forward_fn(depth_norm[..., None], dem_norm[..., None])
+                pred_m = invert_depth_log1p(pred_norm[..., 0], self.max_depth)
+                self._mosaic_accumulate(carry, chunk_idx(s, e), pred_m)
+                stats[s:e] = torch.stack([p_clip, dem_min, dem_max], dim=-1)
+            return self._finish(carry), stats
 
         # Phase 1 — trunk over wide batches; keep LR features + stats.
         feats = None
-        stats = torch.empty((n, 3), dtype=torch.float32, device=dev)
         for s in range(0, n, self.trunk_chunk):
             e = min(n, s + self.trunk_chunk)
             depth_tiles = gather_tiles(
@@ -293,31 +350,22 @@ class SceneExecutor:
             depth_norm = scale_depth_log1p(depth_tiles, self.max_depth)
             p_clip, dem_min, dem_max = dem_tile_stats(dem_tiles, self.dem_pct_clip)
             dem_norm = normalize_dem_with_stats(dem_tiles, p_clip, dem_min, dem_max)
-            feat = self.model.trunk(depth_norm[..., None], dem_norm[..., None])
+            feat = self.model.trunk(
+                depth_norm[..., None], dem_norm[..., None], self.precision
+            )
             if feats is None:
                 feats = torch.empty((n, *feat.shape[1:]), dtype=feat.dtype, device=dev)
             feats[s:e] = feat
             stats[s:e] = torch.stack([p_clip, dem_min, dem_max], dim=-1)
 
         # Phase 2 — HR tail + mosaic at the tail chunk, reusing phase-1 stats.
-        flags = {
-            k: torch.from_numpy(np.asarray(idx[k], bool)).to(dev)
-            for k in ("yf", "yl", "xf", "xl")
-        }
-        valid = torch.from_numpy(np.asarray(idx["valid"], np.float32)).to(dev)
-        y0_host = np.asarray(idx["y0"], np.int64).tolist()
-        x0_host = np.asarray(idx["x0"], np.int64).tolist()
         carry = self._mosaic_init(dev)
         for s in range(0, n, self.chunk):
             e = min(n, s + self.chunk)
             dem_tiles = gather_tiles(dem_pad, y0[s:e], x0[s:e], tile)
             st = stats[s:e]
             dem_norm = normalize_dem_with_stats(dem_tiles, st[:, 0], st[:, 1], st[:, 2])
-            pred_norm = self.model.tail(feats[s:e], dem_norm[..., None])
+            pred_norm = self.model.tail(feats[s:e], dem_norm[..., None], self.precision)
             pred_m = invert_depth_log1p(pred_norm[..., 0], self.max_depth)
-            idx_c = {k: v[s:e] for k, v in flags.items()}
-            idx_c["valid"] = valid[s:e]
-            idx_c["y0_host"] = y0_host[s:e]
-            idx_c["x0_host"] = x0_host[s:e]
-            self._mosaic_accumulate(carry, idx_c, pred_m)
+            self._mosaic_accumulate(carry, chunk_idx(s, e), pred_m)
         return self._finish(carry), stats

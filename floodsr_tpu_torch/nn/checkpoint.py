@@ -1,6 +1,7 @@
 """Model artifact loader: ``.fsrz`` = zip(manifest.json, params.npz, state.npz).
 
-Reads the artifacts the JAX package writes (its ``nn/checkpoint.py``): the
+Reads the artifacts the JAX package writes (its ``nn/checkpoint.py``), and
+holds the two helpers the ONNX converter writes one with: the
 manifest records the architecture config and a skeleton of the parameter
 tree whose leaves are named ``leaf_NNNNN`` in sorted-key order; fp16-stored
 leaves are upcast to float32. :func:`params_from_jax` turns the numpy tree
@@ -21,6 +22,7 @@ import torch
 from floodsr_tpu_torch.nn.resunet import ResUNetConfig
 
 ARTIFACT_FORMAT = "floodsr-tpu-fsrz"
+ARTIFACT_VERSION = 1
 
 
 def _rebuild(skeleton: Any, arrays: dict[str, np.ndarray]) -> Any:
@@ -36,6 +38,42 @@ def _rebuild(skeleton: Any, arrays: dict[str, np.ndarray]) -> Any:
         raise ValueError(f"unexpected skeleton node: {node!r}")
 
     return walk(skeleton)
+
+
+def _skeleton(tree: Any) -> Any:
+    """JSON-able structure mirror with leaf slots replaced by indices."""
+    counter = [0]
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, dict):
+            # sorted key order: the order the leaves are numbered and stored in
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        idx = counter[0]
+        counter[0] += 1
+        return {"__leaf__": idx}
+
+    return walk(tree)
+
+
+# Fixed member timestamp (the zip epoch): the payload's bytes are a pure
+# function of the arrays.
+_ZIP_EPOCH = (1980, 1, 1, 0, 0, 0)
+
+
+def _npz_bytes(arrays: dict[str, np.ndarray]) -> bytes:
+    """np.savez-compatible bytes with deterministic (epoch) member headers."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", compression=zipfile.ZIP_STORED) as zf:
+        for key, arr in arrays.items():
+            member = io.BytesIO()
+            np.lib.format.write_array(member, np.asarray(arr), allow_pickle=False)
+            info = zipfile.ZipInfo(f"{key}.npy", date_time=_ZIP_EPOCH)
+            info.compress_type = zipfile.ZIP_STORED
+            info.external_attr = 0o644 << 16
+            zf.writestr(info, member.getvalue())
+    return buf.getvalue()
 
 
 def _read_npz(blob: bytes) -> dict[str, np.ndarray]:

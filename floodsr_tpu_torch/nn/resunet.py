@@ -17,18 +17,33 @@ like with like; the convolutions run NCHW inside. Parameters carry the JAX
 tree's names (``enc.1.0.conv1.w``), so :func:`floodsr_tpu_torch.nn.checkpoint.
 params_from_jax` loads an artifact with ``load_state_dict(strict=True)``.
 
-Numerics follow the JAX package's f32 policy: XLA "SAME" padding computed
-per convolution (a 3×3/stride-2 conv on an even input pads 0 before and 1
+Numerics follow the JAX package: XLA "SAME" padding computed per
+convolution (a 3×3/stride-2 conv on an even input pads 0 before and 1
 after), inference batch norm folded with the config's ``bn_eps``,
 kernel == stride transposed convs as one matmul with the spatially flipped
 kernel plus depth-to-space. On the GPU the HR fuse blocks + head run through
 the hand-written ``hr_tail`` CUDA kernel whenever the configuration is
 eligible (:func:`hr_tail_eligible`); the trunk convolutions stay
 ``F.conv2d``, as the JAX package leaves them to XLA.
+
+Precision policies (:func:`resolve_precision_policy`) give each stage
+(``trunk``, ``sr_up``, ``tail``, ``head``) a dtype, ``torch.float32`` or
+``torch.bfloat16``; activations are cast at the stage boundaries. A bf16 stage
+computes what the JAX package's does: activations, weights and the BN affine
+are bf16 (every elementwise operation rounds to bf16), and a convolution or
+matmul multiplies bf16 values, accumulates in f32, adds its f32 bias and
+rounds ONCE to bf16. The product runs on the operands upcast to f32, which is
+exact (a product of two bf16 values has 16 significant bits), so the bias can
+be added before the one rounding and the CPU computes the same arithmetic; on
+the GPU these products alone may run as TF32 on the tensor cores
+(:func:`bf16_products`), which is exact for bf16-valued operands too, while
+the f32 stages stay strict f32. A bf16 tail runs the ``hr_tail`` kernel's bf16
+route; the head stays f32 under every policy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -36,7 +51,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-PRECISION_POLICIES = ("f32",)
+PRECISION_STAGES = ("trunk", "sr_up", "tail", "head")
+
+#: Named policies; the head stays f32 in every one (it anchors the
+#: meter-domain output). ``f32`` is the default and the only one the JAX
+#: package holds to its parity gate; ``bf16`` runs the body in single-pass
+#: bf16, ``mixed`` the trunk and the SR upsample only.
+PRECISION_POLICIES: dict[str, dict[str, str]] = {
+    "f32": {"trunk": "f32", "sr_up": "f32", "tail": "f32", "head": "f32"},
+    "bf16": {"trunk": "bf16", "sr_up": "bf16", "tail": "bf16", "head": "f32"},
+    "mixed": {"trunk": "bf16", "sr_up": "bf16", "tail": "f32", "head": "f32"},
+}
+
+_STAGE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,16 +111,59 @@ def split_scale(scale: int) -> tuple[int, int]:
     return scale, 1
 
 
-def resolve_precision_policy(policy: str | None) -> str:
-    """Only the ``f32`` policy is ported; ``bf16``/``mixed`` raise."""
-    policy = "f32" if policy is None else policy
-    if policy in ("bf16", "mixed"):
-        raise NotImplementedError(
-            f"precision policy '{policy}' is not ported yet; only 'f32' runs"
+def resolve_precision_policy(
+    policy: "str | dict | None" = None, compute_dtype=None
+) -> dict[str, torch.dtype]:
+    """Normalize a policy spec into ``{stage: torch dtype}``.
+
+    ``policy`` may be a named policy, a ``{stage: "bf16"|"f32"}`` dict (missing
+    stages default to the ``f32`` policy), an already resolved dict of torch
+    dtypes, or ``None``, in which case ``compute_dtype`` (``torch.bfloat16``
+    or anything else) picks the matching uniform policy.
+    """
+    if policy is None:
+        policy = "bf16" if compute_dtype == torch.bfloat16 else "f32"
+    if isinstance(policy, str):
+        assert policy in PRECISION_POLICIES, (
+            f"unknown precision policy '{policy}'; "
+            f"known: {sorted(PRECISION_POLICIES)}"
         )
-    if policy not in PRECISION_POLICIES:
-        raise ValueError(f"unknown precision policy '{policy}'")
-    return policy
+        spec = PRECISION_POLICIES[policy]
+    else:
+        unknown = set(policy) - set(PRECISION_STAGES)
+        assert not unknown, f"unknown precision stages {sorted(unknown)}"
+        spec = {**PRECISION_POLICIES["f32"], **policy}
+    names = {dtype: name for name, dtype in _STAGE_DTYPES.items()}
+    out = {}
+    for stage in PRECISION_STAGES:
+        v = names.get(spec[stage], spec[stage])
+        assert v in _STAGE_DTYPES, f"stage '{stage}': dtype must be bf16|f32, got {v!r}"
+        out[stage] = _STAGE_DTYPES[v]
+    assert out["head"] == torch.float32, "head stage must stay float32"
+    return out
+
+
+@contextlib.contextmanager
+def bf16_products(on_cuda: bool):
+    """Let the products of a bf16 stage run on the GPU's tensor cores.
+
+    A bf16 stage multiplies bf16 values held in f32 tensors. TF32 keeps 10
+    mantissa bits, bf16 has 7, so with TF32 allowed cuDNN and cuBLAS form
+    these products exactly and still accumulate in f32. The two switches are
+    global, so they are set for the stage only and put back on the way out:
+    the f32 stages before and after stay strict f32
+    (:func:`floodsr_tpu_torch.device.set_strict_f32`). A no-op off the GPU.
+    """
+    if not on_cuda:
+        yield
+        return
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -127,21 +197,34 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def folded(self, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-channel ``(a, c)`` with ``bn(x) == x * a + c``."""
+    def folded(self, eps: float, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-channel ``(a, c)`` with ``bn(x) == x * a + c``, folded in f32
+        and cast to the stage ``dtype``."""
         inv = torch.rsqrt(self.var + eps)
         a = self.scale * inv
         c = self.offset - self.scale * self.mean * inv
-        return a, c
+        return a.to(dtype), c.to(dtype)
+
+
+def _bf16_valued(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, held in f32 (a no-op upcast for a bf16 tensor)."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def conv2d_same(x: torch.Tensor, conv: Conv, stride: int = 1) -> torch.Tensor:
-    """NCHW conv with XLA "SAME" padding, bias added after the product."""
+    """NCHW conv with XLA "SAME" padding, bias added after the product.
+
+    The dtype of ``x`` is the stage dtype. For bf16: bf16 operands, f32
+    accumulation, the f32 bias added in f32, one rounding to bf16.
+    """
     kh, kw = conv.w.shape[2], conv.w.shape[3]
     top, bottom = same_pads(x.shape[2], kh, stride)
     left, right = same_pads(x.shape[3], kw, stride)
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom))
+    if x.dtype == torch.bfloat16:
+        out = F.conv2d(x.to(torch.float32), _bf16_valued(conv.w), None, stride)
+        return (out + conv.b[None, :, None, None]).to(torch.bfloat16)
     return F.conv2d(x, conv.w, None, stride) + conv.b[None, :, None, None]
 
 
@@ -160,13 +243,17 @@ def conv_transpose_nhwc(x: torch.Tensor, conv: Conv, stride: int) -> torch.Tenso
     n, h, w, _ = x.shape
     hwio = conv.w.permute(2, 3, 1, 0)
     wm = hwio.flip(0, 1).permute(2, 0, 1, 3).reshape(ci, stride * stride * co)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # as conv2d_same: exact products in f32, one rounding after the bias
+        x, wm = x.to(torch.float32), _bf16_valued(wm)
     out = torch.matmul(x.reshape(n * h * w, ci), wm)
     out = (
         out.reshape(n, h, w, stride, stride, co)
         .permute(0, 1, 3, 2, 4, 5)
         .reshape(n, h * stride, w * stride, co)
     )
-    return out + conv.b
+    out = out + conv.b
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 class ResBlock(nn.Module):
@@ -181,10 +268,10 @@ class ResBlock(nn.Module):
         self.proj = Conv(1, 1, cin, cout) if cin != cout else None
 
     def forward(self, x: torch.Tensor, eps: float, stride: int = 1) -> torch.Tensor:
-        a1, c1 = self.bn1.folded(eps)
+        a1, c1 = self.bn1.folded(eps, x.dtype)
         y = torch.relu(x * a1[None, :, None, None] + c1[None, :, None, None])
         y = conv2d_same(y, self.conv1, stride)
-        a2, c2 = self.bn2.folded(eps)
+        a2, c2 = self.bn2.folded(eps, x.dtype)
         y = torch.relu(y * a2[None, :, None, None] + c2[None, :, None, None])
         y = conv2d_same(y, self.conv2)
         if self.proj is not None:
@@ -262,13 +349,18 @@ class ResUNet(nn.Module):
             cin = hr_width
         self.fuse = nn.ModuleList(fuse)
         self.head = Conv(1, 1, hr_width, s2d * s2d)
-        self._tail_pack = None  # (weights key, hr_tail weights, tensor-core pack or None)
+        # (weights key, hr_tail weights, {mode: tensor-core pack or None})
+        self._tail_pack = None
 
     # -- trunk --------------------------------------------------------------
 
     @torch.no_grad()
-    def trunk(self, depth_lr: torch.Tensor, dem_hr: torch.Tensor) -> torch.Tensor:
-        """Stem + UNet encoder/decoder: NHWC inputs → ``[N,h,w,f]`` NHWC features."""
+    def trunk(
+        self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, precision=None
+    ) -> torch.Tensor:
+        """Stem + UNet encoder/decoder: NHWC inputs → ``[N,h,w,f]`` NHWC features
+        in the trunk stage's dtype (``precision``: a policy name, dict or
+        resolved policy; ``None`` is ``f32``)."""
         cfg = self.cfg
         if depth_lr.ndim != 4 or dem_hr.ndim != 4:
             raise AssertionError(
@@ -281,10 +373,14 @@ class ResUNet(nn.Module):
                 f"LR spatial dims {tuple(depth_lr.shape[1:3])} must be divisible by "
                 f"2^levels={divisor} for the UNet skip shapes to line up"
             )
+        x_dtype = resolve_precision_policy(precision)["trunk"]
+        with bf16_products(x_dtype == torch.bfloat16 and depth_lr.is_cuda):
+            return self._trunk(depth_lr.to(x_dtype), dem_hr.to(x_dtype))
+
+    def _trunk(self, depth_lr: torch.Tensor, dem_hr: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         eps = cfg.bn_eps
         s = cfg.scale
-        depth_lr = depth_lr.to(torch.float32)
-        dem_hr = dem_hr.to(torch.float32)
         n, hh, ww, c = dem_hr.shape
         dem_lr = dem_hr.reshape(n, hh // s, s, ww // s, s, c).mean(dim=(2, 4))
         x = torch.cat([depth_lr, dem_lr], dim=-1).permute(0, 3, 1, 2)
@@ -308,21 +404,55 @@ class ResUNet(nn.Module):
     # -- tail ---------------------------------------------------------------
 
     @torch.no_grad()
-    def tail(self, trunk_feat: torch.Tensor, dem_hr: torch.Tensor) -> torch.Tensor:
-        """SR upsample + DEM re-fusion + head: → ``[N,H,W,1]`` NHWC prediction.
+    def tail(self, trunk_feat: torch.Tensor, dem_hr: torch.Tensor, precision=None) -> torch.Tensor:
+        """SR upsample + DEM re-fusion + head: → ``[N,H,W,1]`` NHWC f32 prediction.
 
-        ``dem_hr`` is the same normalized HR DEM the trunk saw. On an
-        eligible configuration the fuse blocks and head run as one
-        ``hr_tail`` call (the CUDA kernel for a CUDA tensor).
+        ``dem_hr`` is the same normalized HR DEM the trunk saw; it re-enters
+        here at the tail's precision, taken from the un-rounded f32 input, so
+        a bf16 trunk does not degrade the tail's DEM conditioning. On an
+        eligible configuration the fuse blocks and head run as one ``hr_tail``
+        call (the CUDA kernel for a CUDA tensor), on its bf16 route when the
+        tail stage is bf16; any other configuration runs the unfused blocks in
+        the tail's dtype and the head in f32.
         """
+        stage = resolve_precision_policy(precision)
+        sr_dtype, tail_dtype = stage["sr_up"], stage["tail"]
+        on_cuda = trunk_feat.is_cuda
         cfg = self.cfg
         s2d = int(cfg.hr_s2d)
         s0, s1 = split_scale(cfg.scale // s2d)
-        x = trunk_feat.to(torch.float32)
-        x = torch.relu(conv_transpose_nhwc(x, self.sr_up1, s0))
-        x = torch.relu(conv_transpose_nhwc(x, self.sr_up2, s1))
+        x = trunk_feat.to(sr_dtype)
+        with bf16_products(sr_dtype == torch.bfloat16 and on_cuda):
+            x = torch.relu(conv_transpose_nhwc(x, self.sr_up1, s0))
+            x = torch.relu(conv_transpose_nhwc(x, self.sr_up2, s1))
+        x = x.to(tail_dtype)
+        with bf16_products(tail_dtype == torch.bfloat16 and on_cuda):
+            out, with_head = self._fuse(x, dem_hr.to(tail_dtype))
+        if not with_head:
+            # the unfused blocks leave the head to the f32 stage
+            out = conv2d_same(
+                out.to(torch.float32).permute(0, 3, 1, 2), self.head
+            ).permute(0, 2, 3, 1)
+        if s2d > 1:
+            # depth-to-space back to full HR resolution, single channel.
+            n, hh, ww, _ = out.shape
+            out = (
+                out.reshape(n, hh, ww, s2d, s2d, 1)
+                .permute(0, 1, 3, 2, 4, 5)
+                .reshape(n, hh * s2d, ww * s2d, 1)
+            )
+        return out.to(torch.float32)
 
-        dem = dem_hr.to(torch.float32)
+    def _fuse(self, x: torch.Tensor, dem: torch.Tensor):
+        """DEM features + fuse blocks in the dtype of ``x`` (the tail stage's).
+
+        Returns ``(out, with_head)``: the head's NHWC f32 output and ``True``
+        when the fused ``hr_tail`` ran, else the last fuse block's NHWC output
+        and ``False`` (the caller's f32 head finishes it).
+        """
+        cfg = self.cfg
+        s2d = int(cfg.hr_s2d)
+        tail_dtype = x.dtype
         n, hh, ww, _ = dem.shape
         if s2d > 1:
             # HR stages at (H/s2d)² with s2d²-packed DEM channels.
@@ -336,6 +466,7 @@ class ResUNet(nn.Module):
         if hr_tail_eligible(self):
             from floodsr_tpu_torch.ops.kernels.hr_tail import (
                 hr_tail,
+                pack_hr_tail_bf16,
                 pack_hr_tail_tc,
                 pack_hr_tail_weights,
                 tc_eligible,
@@ -344,39 +475,40 @@ class ResUNet(nn.Module):
             # Pack (fold BN, reorder) once per set of weights, not per call:
             # the key changes when a tensor is replaced (``.to``) or written
             # in place (``load_state_dict`` bumps ``_version``). At the widths
-            # the tensor-core kernels take, their hi/lo weight pack is built
-            # with it.
+            # the tensor-core kernels take, the weight pack of the route in
+            # use (hi/lo TF32 halves, or bf16) is built at its first call and
+            # kept beside it.
             tensors = [*self.fuse.parameters(), *self.fuse.buffers(), *self.head.parameters()]
             key = tuple((t.data_ptr(), t._version) for t in tensors)
             if self._tail_pack is None or self._tail_pack[0] != key:
                 weights = pack_hr_tail_weights(
                     self.fuse[0], self.fuse[1], self.head, bn_eps=cfg.bn_eps
                 )
+                self._tail_pack = (key, weights, {})
+            _, weights, packs = self._tail_pack
+            mode = "bf16" if tail_dtype == torch.bfloat16 else "f32"
+            if mode not in packs:
                 cm, ch = int(self.head.w.shape[1]), int(self.head.w.shape[0])
                 eligible = tc_eligible(int(x.shape[-1]), int(dem_feat.shape[1]), cm, ch)
-                self._tail_pack = (key, weights, pack_hr_tail_tc(weights) if eligible else None)
-            _, weights, tc_pack = self._tail_pack
+                packer = pack_hr_tail_bf16 if mode == "bf16" else pack_hr_tail_tc
+                packs[mode] = packer(weights) if eligible else None
+            # The kernel takes f32 tensors; bf16 activations upcast exactly.
             out = hr_tail(
-                x.contiguous(),
-                dem_feat.permute(0, 2, 3, 1).contiguous(),
+                x.to(torch.float32).contiguous(),
+                dem_feat.permute(0, 2, 3, 1).to(torch.float32).contiguous(),
                 *weights,
-                tc_pack=tc_pack,
+                tc_pack=packs[mode],
+                mode=mode,
             )
-        else:
-            y = torch.cat([x.permute(0, 3, 1, 2), dem_feat], dim=1)
-            for block in self.fuse:
-                y = block(y, cfg.bn_eps)
-            out = conv2d_same(y, self.head).permute(0, 2, 3, 1)
-        if s2d > 1:
-            # depth-to-space back to full HR resolution, single channel.
-            n, hh, ww, _ = out.shape
-            out = (
-                out.reshape(n, hh, ww, s2d, s2d, 1)
-                .permute(0, 1, 3, 2, 4, 5)
-                .reshape(n, hh * s2d, ww * s2d, 1)
-            )
-        return out.to(torch.float32)
+            return out, True
+        y = torch.cat([x.permute(0, 3, 1, 2), dem_feat], dim=1)
+        for block in self.fuse:
+            y = block(y, cfg.bn_eps)
+        return y.permute(0, 2, 3, 1), False
 
     @torch.no_grad()
-    def forward(self, depth_lr: torch.Tensor, dem_hr: torch.Tensor) -> torch.Tensor:
-        return self.tail(self.trunk(depth_lr, dem_hr), dem_hr)
+    def forward(
+        self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, precision=None
+    ) -> torch.Tensor:
+        stage = resolve_precision_policy(precision)
+        return self.tail(self.trunk(depth_lr, dem_hr, stage), dem_hr, stage)

@@ -22,6 +22,20 @@ the ``wgmma`` B operand), which the caller builds once per set of weights
 and hands in; the wrapper never builds it.
 :func:`split_tf32` and :func:`hr_tail_reference_3xtf32` state that route's
 arithmetic in plain torch, for the tests; nothing on the main path calls them.
+
+``mode="bf16"`` is the TPU kernel's second arithmetic (its ``mode="bf16"``,
+run under the ``bf16`` precision policy): inputs, intermediates, affines,
+biases and residual adds stay f32; at the four 3×3 convolutions and at the
+projection the activated operand and the weight are rounded to bf16 and
+multiplied in one pass with f32 accumulation; the head stays at three-pass
+precision. Two more routes carry it on the card, counted like the others:
+``"bf16"`` (``wgmma`` m64n128k16 in bf16 at the tensor-core widths, weights
+from :func:`pack_hr_tail_bf16`) and ``"bf16_direct"`` (the direct kernels
+with the operands rounded to bf16 in registers, any widths). The head is a
+3xTF32 product on the first and an f32 FMA product on the second, both at
+least as exact as the TPU kernel's three-pass bf16 split.
+:func:`hr_tail_reference_bf16` is the plain version: what a CPU tensor runs
+in this mode and what the kernels are held against.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ TC_CM, TC_CH, TC_CK = 128, 16, 16
 #: the tensor-core route and six on the direct one
 launches = 0
 #: the same calls by route
-route_launches = {"tensor": 0, "direct": 0}
+route_launches = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_direct": 0}
 
 
 def pack_hr_tail_weights(f1, f2, head, *, bn_eps: float) -> list[torch.Tensor]:
@@ -106,6 +120,47 @@ def hr_tail_reference(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Te
     y = _conv(_affine_relu(y, w["f2_a2"], w["f2_c2"]), w["f2_w2"], w["f2_b2"])
     y2 = y + y1
     return _conv(y2, w["head_w"], w["head_b"]).permute(0, 2, 3, 1)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The nearest bf16 value (ties to even) of each element, as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, both f32."""
+    x = x.to(torch.float32)
+    hi = round_bf16(x)
+    return hi, round_bf16(x - hi)
+
+
+def hr_tail_reference_bf16(sr: torch.Tensor, dem: torch.Tensor, *weights) -> torch.Tensor:
+    """Plain torch version of ``mode="bf16"``. NHWC in, ``[B, H, W, Ch]`` out.
+
+    The chain of :func:`hr_tail_reference` with each convolution's operand and
+    weight (the four 3×3 and the projection) rounded to bf16 first; a product
+    of two bf16 values is exact in f32, so the f32 convolution of the rounded
+    operands is the single-pass product with f32 accumulation. Biases,
+    affines, residual adds and every intermediate stay f32. The head is the
+    three-pass product of a bf16 split, ``hi·Whi + hi·Wlo + lo·Whi``.
+    """
+    w = dict(zip(WEIGHT_KEYS, weights))
+
+    def conv(x, wk, bk):
+        return _conv(round_bf16(x), round_bf16(w[wk]), w[bk])
+
+    x = torch.cat([sr, dem], dim=-1).permute(0, 3, 1, 2).to(torch.float32)
+    y = conv(_affine_relu(x, w["f1_a1"], w["f1_c1"]), "f1_w1", "f1_b1")
+    y = conv(_affine_relu(y, w["f1_a2"], w["f1_c2"]), "f1_w2", "f1_b2")
+    y1 = y + conv(x, "f1_pw", "f1_pb")
+    y = conv(_affine_relu(y1, w["f2_a1"], w["f2_c1"]), "f2_w1", "f2_b1")
+    y = conv(_affine_relu(y, w["f2_a2"], w["f2_c2"]), "f2_w2", "f2_b2")
+    y2 = y + y1
+    y_hi, y_lo = split_bf16(y2)
+    w_hi, w_lo = split_bf16(w["head_w"])
+    zero = torch.zeros_like(w["head_b"])
+    out = (_conv(y_hi, w_hi, zero) + _conv(y_hi, w_lo, zero)) + _conv(y_lo, w_hi, zero)
+    return (out + w["head_b"][None, :, None, None]).permute(0, 2, 3, 1)
 
 
 def tc_eligible(ca: int, cb: int, cm: int, ch: int) -> bool:
@@ -162,6 +217,36 @@ def pack_hr_tail_tc(weights) -> list[torch.Tensor]:
     return [
         torch.cat([_tc_slabs(w[key]) for key in keys]).contiguous() for keys in TC_PACK_KEYS
     ]
+
+
+def _bf16_slabs(m: torch.Tensor) -> torch.Tensor:
+    """``[taps..., Cin, Cout]`` → ``[Cin/16 * taps, 2, Cout, 8]`` bf16 slabs."""
+    cin, cout = int(m.shape[-2]), int(m.shape[-1])
+    if cin % TC_CK:
+        raise ValueError(f"{cin} input channels are not a multiple of {TC_CK}")
+    rounded = m.reshape(-1, cin, cout).to(torch.bfloat16)  # [taps, cin, cout]
+    taps = rounded.shape[0]
+    slabs = rounded.reshape(taps, cin // TC_CK, TC_CK // 8, 8, cout)
+    return slabs.permute(1, 0, 2, 4, 3).reshape(-1, TC_CK // 8, cout, 8)
+
+
+def pack_hr_tail_bf16(weights) -> list[torch.Tensor]:
+    """The bf16 route's weight pack, from the :data:`WEIGHT_KEYS` list.
+
+    One tensor per :data:`TC_PACK_KEYS` entry. The four convolution entries
+    are ``[slabs, 2, Cout, 8]`` bf16: per 16-channel chunk and tap one
+    contiguous slab (chunk-major) of the bf16-rounded weights, as ``[channel
+    octet][Cout][8 channels]``: the no-swizzle K-major layout of ``wgmma``'s
+    B operand for a 2-byte type, one k16 step a slab. The head entry is the
+    tensor-core route's hi/lo TF32 slabs (:func:`pack_hr_tail_tc`): the head
+    keeps its three-pass product. Build it once per set of weights.
+    """
+    w = dict(zip(WEIGHT_KEYS, weights))
+    packs = [
+        torch.cat([_bf16_slabs(w[key]) for key in keys]).contiguous()
+        for keys in TC_PACK_KEYS[:-1]
+    ]
+    return packs + [_tc_slabs(w["head_w"]).contiguous()]
 
 
 def hr_tail_reference_3xtf32(
@@ -227,6 +312,9 @@ def _lib():
     for name, argtypes in (
         ("hr_tail_launch", [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
         ("hr_tail_tc_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
+        ("hr_tail_bf16_direct_launch",
+         [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
+        ("hr_tail_bf16_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
     ):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
@@ -268,16 +356,33 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _pack_shapes(route: str, want: dict) -> list[tuple[tuple[int, ...], torch.dtype]]:
+    """Shape and dtype of each :data:`TC_PACK_KEYS` entry for a tensor-core route."""
+    out = []
+    for keys in TC_PACK_KEYS:
+        cout = int(want[keys[0]].shape[-1])
+        slabs = sum(want[key].numel() // (TC_CK * cout) for key in keys)
+        if route == "bf16" and keys != ("head_w",):
+            out.append(((slabs, TC_CK // 8, cout, 8), torch.bfloat16))
+        else:
+            out.append(((slabs, 2, TC_CK // 4, cout, 4), torch.float32))
+    return out
+
+
 def hr_tail_cuda(
-    sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None, route: "str | None" = None
+    sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None, route: "str | None" = None,
+    mode: str = "f32",
 ) -> torch.Tensor:
     """Launch the hand-written kernels: NHWC f32 contiguous CUDA tensors.
 
-    The widths alone choose the route: tensor cores where :func:`tc_eligible`,
-    else the direct kernels. The tensor-core route needs ``tc_pack``
-    (:func:`pack_hr_tail_tc` of the same weights, built once per set of
-    weights). ``route`` ("tensor" or "direct") forces one, for the tests and
-    for timing the two side by side; "tensor" raises on widths it does not take.
+    ``mode`` ("f32" or "bf16") names the arithmetic; within it the widths
+    alone choose the route: tensor cores where :func:`tc_eligible` ("tensor"
+    in 3xTF32, "bf16" in bf16), else the direct kernels ("direct",
+    "bf16_direct"). A tensor-core route needs ``tc_pack`` of the same weights,
+    built once per set of weights: :func:`pack_hr_tail_tc` for "tensor",
+    :func:`pack_hr_tail_bf16` for "bf16". ``route`` forces one (and with it
+    the arithmetic), for the tests and for timing routes side by side;
+    "tensor" and "bf16" raise on widths they do not take.
     """
     global launches
     from floodsr_tpu_torch.ops.kernels import _build
@@ -285,35 +390,40 @@ def hr_tail_cuda(
     b, h, w, ca, cb, cm, ch = _check_inputs(sr, dem, weights)
     eligible = tc_eligible(ca, cb, cm, ch)
     if route is None:
-        route = "tensor" if eligible else "direct"
+        if mode not in ("f32", "bf16"):
+            raise ValueError(f"mode must be 'f32' or 'bf16'; got {mode!r}")
+        if mode == "bf16":
+            route = "bf16" if eligible else "bf16_direct"
+        else:
+            route = "tensor" if eligible else "direct"
     if route not in route_launches:
         raise ValueError(f"route must be one of {sorted(route_launches)}; got {route!r}")
-    if route == "tensor":
+    on_tensor_cores = route in ("tensor", "bf16")
+    label = "tensor-core" if route == "tensor" else route
+    if on_tensor_cores:
         if not eligible:
             raise ValueError(
-                f"the tensor-core route takes Cm={TC_CM}, Ch={TC_CH}, Ca and Cb multiples "
+                f"the {label} route takes Cm={TC_CM}, Ch={TC_CH}, Ca and Cb multiples "
                 f"of 4 and Ca+Cb a multiple of {TC_CK}; got Ca={ca} Cb={cb} Cm={cm} Ch={ch}"
             )
+        packer = "pack_hr_tail_tc" if route == "tensor" else "pack_hr_tail_bf16"
         if tc_pack is None:
             raise ValueError(
-                "the tensor-core route needs tc_pack=pack_hr_tail_tc(weights), "
+                f"the {label} route needs tc_pack={packer}(weights), "
                 "built once per set of weights"
             )
         want = dict(zip(WEIGHT_KEYS, weights))
         if len(tc_pack) != len(TC_PACK_KEYS):
             raise ValueError(f"expected {len(TC_PACK_KEYS)} packed weights; got {len(tc_pack)}")
-        for keys, t in zip(TC_PACK_KEYS, tc_pack):
+        for keys, t, (shape, dtype) in zip(TC_PACK_KEYS, tc_pack, _pack_shapes(route, want)):
             name = "+".join(keys)
-            cout = int(want[keys[0]].shape[-1])
-            slabs = sum(want[key].numel() // (TC_CK * cout) for key in keys)
-            shape = (slabs, 2, TC_CK // 4, cout, 4)
             if (
-                tuple(t.shape) != shape or t.dtype != torch.float32
+                tuple(t.shape) != shape or t.dtype != dtype
                 or not t.is_contiguous() or t.device != sr.device
             ):
                 raise ValueError(
-                    f"packed weight {name} must be float32 {shape}, contiguous, on {sr.device}; "
-                    f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                    f"packed weight {name} must be {dtype} {shape}, contiguous, on "
+                    f"{sr.device} ({packer}); got {t.dtype} {tuple(t.shape)} on {t.device}"
                 )
         # 16-byte bulk copies of the slabs; float4 loads of the inputs and the
         # affines, float2 loads of the biases
@@ -323,7 +433,7 @@ def hr_tail_cuda(
         for name, t in aligned:
             if t.data_ptr() % 16:
                 raise ValueError(
-                    f"{name} must start on a 16-byte boundary for the tensor-core route"
+                    f"{name} must start on a 16-byte boundary for the {label} route"
                 )
 
     buf_p = torch.empty((b, h, w, cm), dtype=torch.float32, device=sr.device)
@@ -333,14 +443,16 @@ def hr_tail_cuda(
     wptrs = ctypes.cast(_pointers(weights), ctypes.c_void_p)
     stream = _build.current_stream_ptr(sr.device)
     with torch.cuda.device(sr.device):
-        if route == "tensor":
-            rc = lib.hr_tail_tc_launch(
+        if on_tensor_cores:
+            fn = lib.hr_tail_tc_launch if route == "tensor" else lib.hr_tail_bf16_launch
+            rc = fn(
                 sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
                 ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
                 buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
             )
         else:
-            rc = lib.hr_tail_launch(
+            fn = lib.hr_tail_launch if route == "direct" else lib.hr_tail_bf16_direct_launch
+            rc = fn(
                 sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
                 buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
             )
@@ -350,14 +462,22 @@ def hr_tail_cuda(
     return out
 
 
-def hr_tail(sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None) -> torch.Tensor:
+def hr_tail(
+    sr: torch.Tensor, dem: torch.Tensor, *weights, tc_pack=None, mode: str = "f32"
+) -> torch.Tensor:
     """Fused tail ``[B,H,W,Ca] + [B,H,W,Cb] → [B,H,W,Ch]``: kernel on CUDA, plain on CPU.
 
-    ``tc_pack`` (:func:`pack_hr_tail_tc`) is read only by the tensor-core
-    route on the card, which needs it.
+    ``mode`` "f32" or "bf16" (the module docstring says what each computes).
+    ``tc_pack`` (:func:`pack_hr_tail_tc` for "f32", :func:`pack_hr_tail_bf16`
+    for "bf16") is read only by the tensor-core routes on the card, which
+    need it.
     """
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"mode must be 'f32' or 'bf16'; got {mode!r}")
     if sr.device.type == "cuda":
-        return hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack)
+        return hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack, mode=mode)
     if sr.device.type != "cpu":
         raise ValueError(f"unsupported device {sr.device}")
+    if mode == "bf16":
+        return hr_tail_reference_bf16(sr, dem, *weights)
     return hr_tail_reference(sr, dem, *weights)

@@ -2,7 +2,8 @@
 
 Every test here needs an NVIDIA GPU and skips without one: a CUDA kernel
 has no CPU mode. The file imports no JAX, so it also runs on a machine
-without it: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
+without it: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``
+(``tests/test_torch_cuda_bf16.py`` holds K1's bf16 routes the same way).
 """
 
 import numpy as np
@@ -151,6 +152,17 @@ def _tail_weights(ca, cb, cm, ch, device, seed=0):
     return out
 
 
+def _reset_routes():
+    ht.launches = 0
+    for route in ht.route_launches:
+        ht.route_launches[route] = 0
+
+
+def _routes(**counts):
+    """The expected ``route_launches``: the named counts, 0 for every other route."""
+    return {route: counts.get(route, 0) for route in ht.route_launches}
+
+
 def _tail_inputs(b, h, w, ca, cb, device, seed=1, scale=1.0):
     rng = np.random.default_rng(seed)
     sr = np.abs(rng.normal(0, scale, (b, h, w, ca))).astype(np.float32)
@@ -179,8 +191,7 @@ def test_hr_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cb, cm, 
     weights = _tail_weights(ca, cb, cm, ch, cuda_device)
     want = ht.hr_tail_reference(sr, dem, *weights)
     pack = ht.pack_hr_tail_tc(weights) if route == "tensor" else None
-    ht.launches = 0
-    ht.route_launches.update(tensor=0, direct=0)
+    _reset_routes()
     for _ in range(2):  # twice: a missing fence gives wrong sums only sometimes
         got = ht.hr_tail(sr, dem, *weights, tc_pack=pack)
         torch.cuda.synchronize()
@@ -191,7 +202,7 @@ def test_hr_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cb, cm, 
         err = float((got - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max())
     assert ht.launches == 2
-    assert ht.route_launches == {"tensor": 2 * (route == "tensor"), "direct": 2 * (route == "direct")}
+    assert ht.route_launches == _routes(**{route: 2})
 
 
 def test_hr_tail_both_routes_agree_at_the_flagship_widths(cuda_device):
@@ -206,10 +217,10 @@ def test_hr_tail_both_routes_agree_at_the_flagship_widths(cuda_device):
         weights[ht.WEIGHT_KEYS.index(key)].fill_(2.0)
     want = ht.hr_tail_reference(sr, dem, *weights)
     pack = ht.pack_hr_tail_tc(weights)
-    ht.route_launches.update(tensor=0, direct=0)
+    _reset_routes()
     tensor = ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="tensor")
     direct = ht.hr_tail_cuda(sr, dem, *weights, route="direct")
-    assert ht.route_launches == {"tensor": 1, "direct": 1}
+    assert ht.route_launches == _routes(tensor=1, direct=1)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     assert float((tensor - want).abs().max()) <= 1e-4 * scale
@@ -229,9 +240,9 @@ def test_hr_tail_tensor_route_holds_f32_level_at_large_features(cuda_device):
     sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=5, scale=1e4)
     weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=4)
     want = ht.hr_tail_reference(sr, dem, *weights)
-    ht.route_launches.update(tensor=0, direct=0)
+    _reset_routes()
     got = ht.hr_tail(sr, dem, *weights, tc_pack=ht.pack_hr_tail_tc(weights))
-    assert ht.route_launches == {"tensor": 1, "direct": 0}
+    assert ht.route_launches == _routes(tensor=1)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())

@@ -134,7 +134,8 @@ def test_model_tail_dispatches_to_hr_tail_on_an_eligible_config(monkeypatch):
 
     def spy(*args, **kwargs):
         calls.append(args[0].shape)
-        assert kwargs == {"tc_pack": None}  # narrow widths: no tensor-core pack
+        # narrow widths: no tensor-core pack; no policy asked for: the f32 arithmetic
+        assert kwargs == {"tc_pack": None, "mode": "f32"}
         return original(*args, **kwargs)
 
     monkeypatch.setattr(ht, "hr_tail", spy)
@@ -318,15 +319,18 @@ def test_model_tail_builds_the_tensor_core_pack_once_per_set_of_weights(monkeypa
     with torch.no_grad():
         for prm in model.parameters():
             prm.copy_(torch.from_numpy(rng.normal(0, 0.05, tuple(prm.shape)).astype(np.float32)))
-    built = []
-    original = ht.pack_hr_tail_tc
+    built, built_bf16 = [], []
+    original, original_bf16 = ht.pack_hr_tail_tc, ht.pack_hr_tail_bf16
     monkeypatch.setattr(ht, "pack_hr_tail_tc", lambda ws: built.append(1) or original(ws))
+    monkeypatch.setattr(
+        ht, "pack_hr_tail_bf16", lambda ws: built_bf16.append(1) or original_bf16(ws)
+    )
     passed = []
     original_tail = ht.hr_tail
 
-    def spy(*args, tc_pack=None):
+    def spy(*args, tc_pack=None, mode="f32"):
         passed.append(tc_pack)
-        return original_tail(*args, tc_pack=tc_pack)
+        return original_tail(*args, tc_pack=tc_pack, mode=mode)
 
     monkeypatch.setattr(ht, "hr_tail", spy)
     feat = torch.from_numpy(rng.normal(0, 1, (1, 2, 2, 32)).astype(np.float32))
@@ -339,16 +343,26 @@ def test_model_tail_builds_the_tensor_core_pack_once_per_set_of_weights(monkeypa
     model.load_state_dict(model.state_dict())
     model.tail(feat, dem)
     assert len(built) == 2 and passed[2] is not passed[0]
+    # a bf16 tail gets the bf16 pack, built once beside the TF32 one and only
+    # when a bf16 tail first runs
+    assert built_bf16 == []
+    model.tail(feat, dem, "bf16")
+    model.tail(feat, dem, {"tail": "bf16"})
+    model.tail(feat, dem, "mixed")  # an f32 tail again
+    assert len(built_bf16) == 1 and len(built) == 2
+    assert passed[3] is passed[4] and passed[3][0].dtype == torch.bfloat16
+    assert passed[5] is passed[2]
 
 
 def test_route_counters_reset_with_the_launch_counts():
     from floodsr_tpu_torch.ops import kernels
 
-    ht.launches = 2
-    ht.route_launches.update(tensor=1, direct=1)
+    ht.launches = 4
+    ht.route_launches.update(tensor=1, direct=1, bf16=1, bf16_direct=1)
     kernels.reset_launch_counts()
-    assert ht.launches == 0 and ht.route_launches == {"tensor": 0, "direct": 0}
-    assert kernels.route_counts()["hr_tail"] == {"tensor": 0, "direct": 0}
+    zeros = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_direct": 0}
+    assert ht.launches == 0 and ht.route_launches == zeros
+    assert kernels.route_counts()["hr_tail"] == zeros
 
 
 def test_kernel_library_is_stale_when_an_included_source_is_newer(tmp_path, monkeypatch):

@@ -197,7 +197,8 @@ def test_res_block_matches_jax(cin, cout, stride):
 
 
 def test_only_the_f32_policy_runs():
-    assert resolve_precision_policy(None) == "f32"
+    # ... unless another is asked for: no policy means every stage in f32.
+    assert set(resolve_precision_policy(None).values()) == {torch.float32}
+    assert resolve_precision_policy(None) == resolve_precision_policy("f32")
     for policy in ("bf16", "mixed"):
-        with pytest.raises(NotImplementedError):
-            resolve_precision_policy(policy)
+        assert resolve_precision_policy(policy)["trunk"] == torch.bfloat16

@@ -171,6 +171,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "floodsr_tpu_torch/dem_sources/catalog.py",
         "floodsr_tpu_torch/dem_sources/hrdem_stac.py",
         "floodsr_tpu_torch/features/nrcan_buildings.py",
+        "floodsr_tpu_torch/nn/onnx_reader.py",
+        "floodsr_tpu_torch/nn/onnx_exec.py",
+        "floodsr_tpu_torch/nn/onnx_convert.py",
+        "floodsr_tpu_torch/eval/metrics.py",
         "chip_smoke.py",
     } <= covered
     banned = ("jax", "floodsr_tpu")
