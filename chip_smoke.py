@@ -81,7 +81,22 @@ Phases (any failure raises and exits non-zero; none is caught):
     own torch module agree on a batch of tiles; the ``.onnx`` through ``tohr``
     at 4096² (121 tiles, single-phase executor, K2 launched, K1 not), then
     ``convert_onnx_to_fsrz`` and the same scene through the ``.fsrz``;
-18. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+18. train — the flagship configuration (16,661,616 parameters, from
+    ``init_resunet(--seed)``) on 24 synthetic 512² scenes
+    (``train/synth.py``), staged on the card, batch 8: the first train step
+    on the card against the same step with ``device="cpu"`` (loss, grad
+    norm, BN running stats, Adam moments, and the card's update against
+    optax's formula on its own moments); the step's FLOPs counted and from
+    the config; three timed calls of the resident loop (10 steps each, after
+    one warm-up call) in ``float32`` and in ``bfloat16`` (steps/s, ms a
+    step, peak MiB, share of the f32 peak, the loss curve, every loss
+    finite); the eval step on the held-out scenes (K1 on its tensor-core
+    route, counted and timed; metrics equal to the CPU's to 1e-3); the
+    training checkpoint saved and restored bit for bit; the exported
+    inference artifact through ``tohr`` on ``synth_flagship`` (K1 and K2
+    launched). One JSON line of the phase's numbers;
+19. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval``), the
+    card's name and power limit, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1831,13 +1846,303 @@ def phase_onnx(torch, seed: int, size: int, tmp: Path, with_profile: bool = Fals
     return {"launches": runs["onnx"]["counts"]}
 
 
+TRAIN_SCENES = 24   # synthetic 512² scenes, as bin/train_flagship.py::build_dataset
+TRAIN_BATCH = 8     # the reference's batch (bin/train_flagship.py)
+TRAIN_CALLS = 3     # timed resident loop calls after one warm-up call
+TRAIN_STEPS_PER_CALL = 10
+
+
+def forward_macs(cfg, n: int) -> int:
+    """Multiply-adds of one ResUNet forward over ``n`` LR tiles, from the config
+    (every convolution, transposed convolution and the head)."""
+    from floodsr_tpu_torch.nn.resunet import split_scale
+
+    def conv(hw, k, cin, cout):
+        return n * hw * hw * k * k * cin * cout
+
+    def block(hw, cin, cout):
+        return conv(hw, 3, cin, cout) + conv(hw, 3, cout, cout) + (conv(hw, 1, cin, cout) if cin != cout else 0)
+
+    f, hw = cfg.base_filters, cfg.lr_tile
+    macs, cin = conv(hw, 3, 2, f), f
+    for stage, w in enumerate(cfg.widths):
+        for bi in range(cfg.enc_blocks):
+            hw //= 2 if (stage > 0 and bi == 0) else 1
+            macs += block(hw, cin, w)
+            cin = w
+    for w in reversed(cfg.widths[:-1]):
+        macs += n * hw * hw * cin * 4 * w  # kernel == stride 2: one matmul
+        hw, cin = hw * 2, 2 * w
+        for _ in range(cfg.dec_blocks):
+            macs += block(hw, cin, w)
+            cin = w
+    s2d = int(cfg.hr_s2d)
+    s0, s1 = split_scale(cfg.scale // s2d)
+    macs += n * hw * hw * cin * s0 * s0 * f
+    hw *= s0
+    macs += n * hw * hw * f * s1 * s1 * f * s2d
+    hw *= s1
+    macs += conv(hw, 3, s2d * s2d, cfg.fuse_filters)
+    cin = f * s2d + cfg.fuse_filters
+    for _ in range(cfg.fuse_blocks):
+        macs += block(hw, cin, f * s2d)
+        cin = f * s2d
+    return macs + conv(hw, 1, f * s2d, s2d * s2d)
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """``{dotted path: float64 array}`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k in tree for k2, v2 in flat_tree(tree[k], f"{prefix}.{k}").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in flat_tree(v, f"{prefix}.{i}").items()}
+    return {prefix: np.asarray(tree, dtype=np.float64)}
+
+
+def train_max_errs(tt, a, b, p0: dict, lr: float) -> dict:
+    """Card state ``a`` against CPU state ``b`` after one step from the
+    parameters ``p0``: the largest differences, each as its tolerance reads it.
+
+    BN running stats in absolute terms; each Adam moment against the largest
+    moment of its kind (a leaf whose gradient is small through cancellation,
+    or rounding noise as every block's ``conv1.b``, which feeds a batch norm
+    alone, differs far more than 1e-3 of its own max); the card's parameters
+    against optax's update computed in float64 from the card's own moments,
+    in units of ``lr`` (Adam divides each element by its own ``|g|``, so an
+    element whose gradient is noise may move by ``lr`` either way on the two
+    devices: that share is reported, not held).
+    """
+    from floodsr_tpu_torch.nn.checkpoint import params_to_jax
+
+    pa, sa = (flat_tree(t) for t in params_to_jax(a.model.state_dict()))
+    pb, sb = (flat_tree(t) for t in params_to_jax(b.model.state_dict()))
+    oa, ob = flat_tree(tt.opt_state_to_numpy(a.opt_state)), flat_tree(tt.opt_state_to_numpy(b.opt_state))
+    out = {"bn_stats_abs": max(float(np.abs(sa[k] - sb[k]).max()) for k in sb)}
+    for name, kind in (("mu", ".1.0.1"), ("nu", ".1.0.2")):
+        keys = [k for k in ob if k.startswith(kind + ".")]
+        top = max(np.abs(ob[k]).max() for k in keys)
+        errs = {k: float(np.abs(oa[k] - ob[k]).max() / top) for k in keys}
+        worst = max(errs, key=errs.get)
+        out[f"adam_{name}_of_top"] = errs[worst]
+        out[f"adam_{name}_worst_leaf"] = worst[len(kind) + 1:]
+    for key in (".1.0.0", ".1.1.0"):
+        if oa[key] != ob[key]:
+            raise AssertionError(f"train: optimizer count {key} {oa[key]} != {ob[key]}")
+    update, moved = 0.0, 0
+    for key, p1 in pa.items():
+        u = (oa[".1.0.1" + key] / (1 - 0.9)) / (np.sqrt(oa[".1.0.2" + key] / (1 - 0.999)) + 1e-8)
+        update = max(update, float(np.abs(p1 - (p0[key] - lr * u)).max() / lr))
+        moved += int((np.abs(p1 - pb[key]) > 1e-3 * lr).sum())
+    out["update_vs_formula_of_lr"] = update
+    out["share_moved_apart"] = moved / sum(v.size for v in pa.values())
+    return out
+
+
+def phase_train(torch, seed: int, tmp: Path, card: str, with_profile: bool = False) -> dict:
+    """Train the flagship configuration on the card: card vs CPU, timed
+    resident loops in float32 and bfloat16 (with ``with_profile``, one more
+    call of each traced), the eval step (K1), checkpoint round trip, export
+    and ``tohr`` with the exported artifact."""
+    import zipfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import floodsr_tpu_torch.ops.kernels.hr_tail as ht
+    from floodsr_tpu_torch.io import read_raster
+    from floodsr_tpu_torch.nn.checkpoint import params_to_jax
+    from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig, count_params, init_resunet
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+    from floodsr_tpu_torch.tohr import tohr
+    from floodsr_tpu_torch.train import PatchDataset, TrainConfig, split_indices
+    from floodsr_tpu_torch.train import trainer as tt
+    from floodsr_tpu_torch.train.synth import box_mean, make_terrain, make_truth
+
+    with zipfile.ZipFile(FLAGSHIP) as zf:
+        cfg = ResUNetConfig.from_dict(json.loads(zf.read("manifest.json"))["config"])
+    n_params = count_params(init_resunet(seed, cfg)[0])
+    if n_params != 16_661_616:
+        raise AssertionError(f"train: flagship config has {n_params} parameters")
+    t0 = time.perf_counter()
+    hr = cfg.hr_tile
+    dems = [make_terrain((hr, hr), 31000 + seed + i) for i in range(TRAIN_SCENES)]
+    truths = [make_truth(d, 31000 + seed + i) for i, d in enumerate(dems)]
+    dataset = PatchDataset(
+        depth_lr=np.stack([box_mean(t, cfg.scale) for t in truths]),
+        dem_hr=np.stack(dems), target_hr=np.stack(truths),
+    )
+    train_idx, val_idx = split_indices(len(dataset), val_fraction=1 / 3, seed=seed)
+    data = tt.stage_dataset_to_device(dataset, train_idx, device="cuda")
+    val = {k: v.numpy() for k, v in tt.stage_dataset_to_device(dataset, val_idx, device="cpu").items()}
+    tcfg = TrainConfig(base_lr=4e-4, second_lr=1e-4)
+    setup_s = time.perf_counter() - t0
+
+    # 1. the first step on the card against the same step on the CPU
+    batch = {k: v[:TRAIN_BATCH].cpu().numpy() for k, v in data.items()}
+    first = {}
+    for dev in ("cuda", "cpu"):
+        state = tt.init_train_state(seed, cfg, tcfg, device=dev)
+        p0 = flat_tree(params_to_jax(state.model.state_dict())[0])
+        t1 = time.perf_counter()
+        state, metrics = tt.make_train_step(cfg, tcfg)(state, batch)
+        first[dev] = (state, {k: float(v) for k, v in metrics.items()}, time.perf_counter() - t1)
+    (gpu, mg, _), (cpu, mc, cpu_s) = first["cuda"], first["cpu"]
+    errs = {
+        "loss_rel": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+        "grad_norm_rel": abs(mg["grad_norm"] - mc["grad_norm"]) / abs(mc["grad_norm"]),
+        **train_max_errs(tt, gpu, cpu, p0, tcfg.base_lr),
+    }
+    tol = {
+        "loss_rel": 1e-4, "grad_norm_rel": 1e-3, "bn_stats_abs": 1e-4,
+        "adam_mu_of_top": 1e-2, "adam_nu_of_top": 1e-2, "update_vs_formula_of_lr": 1e-3,
+    }
+    log(f"[train] first step, card vs CPU (batch {TRAIN_BATCH}, CPU step {cpu_s:.1f} s): "
+        f"{json.dumps(errs)} (tolerances {json.dumps(tol)}); loss {mg['loss']:.6f} grad_norm {mg['grad_norm']:.4f}")
+    if not all(errs[k] <= tol[k] for k in tol):
+        raise AssertionError(f"train: card vs CPU {errs} > {tol}")
+    del first, gpu, cpu
+
+    # FLOPs of one step: counted over the step's products, and from the config
+    state = tt.init_train_state(seed, cfg, tcfg, device="cuda")
+    counter = FlopCounterMode(display=False)
+    with counter:
+        tt.make_train_step(cfg, tcfg, donate=False)(state, batch)
+    step_flops = counter.get_total_flops()
+    fwd_flops = 2 * forward_macs(cfg, TRAIN_BATCH)
+    if not 2.5 * fwd_flops <= step_flops <= 3.05 * fwd_flops:
+        raise AssertionError(f"train: counted {step_flops:.4g} FLOPs, forward {fwd_flops:.4g} from the config")
+
+    # 2. timed resident loops: one warm-up call, then TRAIN_CALLS calls
+    runs = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        state = tt.init_train_state(seed, cfg, tcfg, device="cuda")
+        loop = tt.make_resident_train_loop(
+            cfg, tcfg, batch_size=TRAIN_BATCH, steps_per_call=TRAIN_STEPS_PER_CALL, compute_dtype=dtype,
+        )
+        rng = tt.ResidentRng.from_seed(seed, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, warm = loop(state, data, rng)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        curve = [warm]
+        for _ in range(TRAIN_CALLS):
+            state, losses = loop(state, data, rng)
+            curve.append(losses)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / (TRAIN_CALLS * TRAIN_STEPS_PER_CALL)
+        losses = torch.cat(curve).cpu().numpy()
+        if not (np.isfinite(losses).all() and losses.shape == ((TRAIN_CALLS + 1) * TRAIN_STEPS_PER_CALL,)):
+            raise AssertionError(f"train ({name}): losses {losses}")
+        if with_profile:
+            prof = device_profile(torch, lambda: loop(state, data, rng))
+            prof["device_idle_share"] = 1.0 - prof["device_busy_s"] / (ms * TRAIN_STEPS_PER_CALL / 1e3)
+            log(f"[profile] train loop ({name}, {TRAIN_STEPS_PER_CALL} steps) {json.dumps(prof)}")
+        runs[name] = {
+            "ms_per_step": ms, "steps_per_s": 1e3 / ms,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "share_of_f32_peak": step_flops / (ms * 1e-3) / PEAK_F32_PER_S,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "loss_curve": [round(float(v), 5) for v in losses],
+        }
+        if name == "float32":
+            trained = state
+        else:
+            del state
+    log(f"[train] step: {step_flops:.4g} FLOPs counted (forward {fwd_flops:.4g} from the config, "
+        f"x{step_flops / fwd_flops:.3f}); bound at the f32 peak {step_flops / PEAK_F32_PER_S * 1e3:.2f} ms")
+    for name, run in runs.items():
+        log(f"[train] {name} on {card}: {json.dumps(run)}")
+
+    # 3. the eval step on the held-out batch: K1 on its tensor-core route
+    eval_step = tt.make_eval_step(cfg, tcfg)
+    k1_ms = []
+    launch = ht.hr_tail_cuda
+
+    def timed_launch(*args, **kw):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = launch(*args, **kw)
+        ev[1].record()
+        k1_ms.append(ev)
+        return out
+
+    eval_step(trained, val)  # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ht.hr_tail_cuda = timed_launch
+    try:
+        t1 = time.perf_counter()
+        got = eval_step(trained, val)
+        got = {k: float(v) for k, v in got.items()}
+        eval_s = time.perf_counter() - t1
+    finally:
+        ht.hr_tail_cuda = launch
+    counts, routes = launch_counts(), route_counts()["hr_tail"]
+    if not (counts["hr_tail"] > 0 and routes["tensor"] == counts["hr_tail"] == len(k1_ms)):
+        raise AssertionError(f"train: eval step's hr_tail launches {counts} by route {routes}")
+    cpu_model = ResUNet(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in trained.model.state_dict().items()})
+    want = {k: float(v) for k, v in eval_step(tt.TrainState(0, cpu_model, {}, []), val).items()}
+    if not all(abs(got[k] - want[k]) <= 1e-3 * max(1.0, abs(want[k])) for k in want):
+        raise AssertionError(f"train: eval on the card {got} vs the CPU {want}")
+    k1_eval_ms = sum(a.elapsed_time(b) for a, b in k1_ms)
+    log(f"[train] eval step ({len(val_idx)} held-out tiles): {json.dumps(got)}; CPU agrees to 1e-3; "
+        f"K1 {counts['hr_tail']} launch(es) on the tensor-core route, {k1_eval_ms:.3f} ms of "
+        f"{eval_s * 1e3:.1f} ms")
+
+    # 4. checkpoint round trip, export, tohr with the exported artifact
+    t1 = time.perf_counter()
+    ckpt = tt.save_train_state(tmp / "train_ckpt.fsrz", trained, cfg)
+    restored, cfg2 = tt.restore_train_state(ckpt, tcfg, device="cuda")
+    saved, back = trained.model.state_dict(), restored.model.state_dict()
+    opt_saved = flat_tree(tt.opt_state_to_numpy(trained.opt_state))
+    opt_back = flat_tree(tt.opt_state_to_numpy(restored.opt_state))
+    same = (
+        cfg2 == cfg and restored.step == trained.step and list(saved) == list(back)
+        and all(torch.equal(saved[k], back[k]) for k in saved)
+        and list(opt_saved) == list(opt_back)
+        and all(np.array_equal(opt_saved[k], opt_back[k]) for k in opt_saved)
+    )
+    if not same:
+        raise AssertionError("train: the restored checkpoint differs from the saved state")
+    exported = tt.export_inference_artifact(tmp / "exported.fsrz", trained, cfg, {"steps": trained.step})
+    ckpt_s = time.perf_counter() - t1
+    case = DATA / "synth_flagship"
+    spec = json.loads((case / "case_spec.json").read_text())
+    reset_launch_counts()
+    tohr(
+        model_version="ResUNet_16x_DEM", model_fp=exported,
+        depth_lr_fp=case / spec["inputs"]["lowres_fp"], dem_hr_fp=case / spec["inputs"]["dem_fp"],
+        output_fp=tmp / "train_exported.tif", device="cuda",
+    )
+    tohr_counts = launch_counts()
+    pred, _, _ = read_raster(tmp / "train_exported.tif")
+    if not (np.isfinite(pred).all() and tohr_counts["hr_tail"] > 0 and tohr_counts["tile_stats"] > 0):
+        raise AssertionError(f"train: tohr with the exported artifact: launches {tohr_counts}")
+    log(f"[train] checkpoint ({ckpt.stat().st_size / 2**20:.1f} MiB) saved, restored bit for bit "
+        f"and exported in {ckpt_s:.1f} s; tohr on synth_flagship with the export: launches {tohr_counts}")
+    report = {
+        "card": card, "config": "flagship", "params": n_params, "batch": TRAIN_BATCH,
+        "scenes": TRAIN_SCENES,
+        "phase_s": time.perf_counter() - t0, "setup_s": setup_s, "checkpoint_s": ckpt_s,
+        "step_flops": step_flops, "forward_flops_from_config": fwd_flops,
+        "card_vs_cpu": errs, "eval": got, "k1_eval_launches": counts["hr_tail"], "k1_eval_ms": k1_eval_ms,
+        **{f"{name}_{k}": v for name, run in runs.items() for k, v in run.items() if k != "loss_curve"},
+    }
+    print(json.dumps({"train": report}), flush=True)
+    return {"k1_launches_eval": counts["hr_tail"], "k1_eval_ms": k1_eval_ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--profile", action="store_true",
         help="also trace one more run of the f32, bfloat16, mixed, CostGrow and ONNX scenes "
-             "with torch.profiler (device time by kernel, the device's idle share)",
+             "and of the training loops with torch.profiler (device time by kernel, the "
+             "device's idle share)",
     )
     args = parser.parse_args(argv)
 
@@ -1875,6 +2180,7 @@ def main(argv=None) -> int:
         policies = phase_policies(torch, args.seed, SCENE_SIZE, tmp, args.profile)
         phase_finish(torch, args.seed, SCENE_SIZE, tmp)
         onnx = phase_onnx(torch, args.seed, SCENE_SIZE, tmp, args.profile)
+        train = phase_train(torch, args.seed, tmp, device["smi"], args.profile)
     # Each serving path's own launches, read around that path alone.
     for k in kernels:
         k["launches_stream"] = stream["launches"][k["name"]]
@@ -1893,6 +2199,8 @@ def main(argv=None) -> int:
     if not k1_bf16["launches"] > 0:
         raise AssertionError(f"hr_tail's bf16 route was not launched by the bfloat16 scene: {k1_bf16}")
     kernels.insert(2, k1_bf16)
+    # K1 in the training path's eval step (the train step itself runs unfused)
+    k1["launches_train_eval"], k1["train_eval_ms"] = train["k1_launches_eval"], train["k1_eval_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])

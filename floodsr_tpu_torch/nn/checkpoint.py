@@ -1,11 +1,13 @@
-"""Model artifact loader: ``.fsrz`` = zip(manifest.json, params.npz, state.npz).
+"""Model artifact format: ``.fsrz`` = zip(manifest.json, params.npz, state.npz).
 
-Reads the artifacts the JAX package writes (its ``nn/checkpoint.py``), and
-holds the two helpers the ONNX converter writes one with: the
-manifest records the architecture config and a skeleton of the parameter
+Reads and writes the artifacts of the JAX package's ``nn/checkpoint.py``:
+the manifest records the architecture config and a skeleton of the parameter
 tree whose leaves are named ``leaf_NNNNN`` in sorted-key order; fp16-stored
-leaves are upcast to float32. :func:`params_from_jax` turns the numpy tree
-into a PyTorch ``state_dict`` for :class:`floodsr_tpu_torch.nn.resunet.ResUNet`.
+leaves are upcast to float32. :func:`save_artifact` writes the same bytes as
+the JAX package's for the same numpy trees, so an artifact's sha256 (which
+keys the registry) does not depend on the package that wrote it.
+:func:`params_from_jax` turns the numpy tree into a PyTorch ``state_dict`` for
+:class:`floodsr_tpu_torch.nn.resunet.ResUNet`, :func:`params_to_jax` back.
 """
 
 from __future__ import annotations
@@ -62,6 +64,13 @@ def _skeleton(tree: Any) -> Any:
 _ZIP_EPOCH = (1980, 1, 1, 0, 0, 0)
 
 
+def _zip_writestr(zf: zipfile.ZipFile, name: str, data: bytes | str, *, compress: int) -> None:
+    info = zipfile.ZipInfo(name, date_time=_ZIP_EPOCH)
+    info.compress_type = compress
+    info.external_attr = 0o644 << 16
+    zf.writestr(info, data)
+
+
 def _npz_bytes(arrays: dict[str, np.ndarray]) -> bytes:
     """np.savez-compatible bytes with deterministic (epoch) member headers."""
     buf = io.BytesIO()
@@ -69,11 +78,78 @@ def _npz_bytes(arrays: dict[str, np.ndarray]) -> bytes:
         for key, arr in arrays.items():
             member = io.BytesIO()
             np.lib.format.write_array(member, np.asarray(arr), allow_pickle=False)
-            info = zipfile.ZipInfo(f"{key}.npy", date_time=_ZIP_EPOCH)
-            info.compress_type = zipfile.ZIP_STORED
-            info.external_attr = 0o644 << 16
-            zf.writestr(info, member.getvalue())
+            _zip_writestr(zf, f"{key}.npy", member.getvalue(), compress=zipfile.ZIP_STORED)
     return buf.getvalue()
+
+
+def _leaves(tree: Any) -> list[np.ndarray]:
+    """Leaves in the skeleton's numbering: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def save_artifact(
+    fp: str | Path,
+    config: ResUNetConfig,
+    params: Any,
+    state: Any,
+    metadata: dict | None = None,
+    *,
+    store_dtype: str | None = None,
+) -> Path:
+    """Write a model artifact from numpy trees; returns the written path.
+
+    ``store_dtype="float16"`` stores float32 leaves as half precision (the
+    loader restores float32); the stored dtype is recorded in the manifest.
+    The manifest is ``json.dumps(..., sort_keys=True)`` and every zip member
+    carries the zip epoch, so the bytes are a pure function of the trees.
+    """
+    path = Path(fp).expanduser().resolve()
+    path.parent.mkdir(parents=True, exist_ok=True)
+
+    params_arrays = {f"leaf_{i:05d}": a for i, a in enumerate(_leaves(params))}
+    state_arrays = {f"leaf_{i:05d}": a for i, a in enumerate(_leaves(state))}
+    if store_dtype == "float16":
+        def half(arrays):
+            return {
+                k: (a.astype(np.float16) if a.dtype == np.float32 else a)
+                for k, a in arrays.items()
+            }
+
+        params_arrays = half(params_arrays)
+        state_arrays = half(state_arrays)
+    elif store_dtype is not None:
+        raise ValueError(f"unsupported store_dtype {store_dtype!r}")
+    manifest = {
+        "format": ARTIFACT_FORMAT,
+        "version": ARTIFACT_VERSION,
+        "architecture": "ResUNet_DEM",
+        "config": config.to_dict(),
+        "io_contract": {
+            "depth_input_name": "depth_lr",
+            "dem_input_name": "dem_hr",
+            "output_name": "depth_hr_pred",
+            "depth_lr_hwc": [config.lr_tile, config.lr_tile, 1],
+            "dem_hr_hwc": [config.hr_tile, config.hr_tile, 1],
+            "output_hwc": [config.hr_tile, config.hr_tile, 1],
+            "scale": config.scale,
+        },
+        "params_skeleton": _skeleton(params),
+        "state_skeleton": _skeleton(state),
+        "store_dtype": store_dtype or "float32",
+        "metadata": metadata or {},
+    }
+    with zipfile.ZipFile(path, "w") as zf:
+        _zip_writestr(
+            zf, "manifest.json", json.dumps(manifest, sort_keys=True),
+            compress=zipfile.ZIP_DEFLATED,
+        )
+        _zip_writestr(zf, "params.npz", _npz_bytes(params_arrays), compress=zipfile.ZIP_DEFLATED)
+        _zip_writestr(zf, "state.npz", _npz_bytes(state_arrays), compress=zipfile.ZIP_DEFLATED)
+    return path
 
 
 def _read_npz(blob: bytes) -> dict[str, np.ndarray]:

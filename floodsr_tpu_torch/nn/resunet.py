@@ -39,6 +39,15 @@ the GPU these products alone may run as TF32 on the tensor cores
 (:func:`bf16_products`), which is exact for bf16-valued operands too, while
 the f32 stages stay strict f32. A bf16 tail runs the ``hr_tail`` kernel's bf16
 route; the head stays f32 under every policy.
+
+Training (:meth:`ResUNet.forward_train`) runs with autograd and batch
+statistics in every batch norm, as the JAX package's ``train=True`` does:
+mean and biased variance over N, H and W, the gradient flowing through both,
+the new running stats returned (not written) as ``momentum·old + (1 −
+momentum)·batch``, and the tail unfused (the ``hr_tail`` kernel has no
+backward). :func:`init_resunet` draws the JAX package's initial weights from
+the same numpy generator, bit for bit; :func:`floodsr_tpu_torch.nn.
+checkpoint.params_from_jax` loads them.
 """
 
 from __future__ import annotations
@@ -46,7 +55,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -109,6 +120,109 @@ def split_scale(scale: int) -> tuple[int, int]:
         if scale % a == 0:
             return a, scale // a
     return scale, 1
+
+
+# ---------------------------------------------------------------------------
+# initialization (numpy trees in the JAX package's layout)
+# ---------------------------------------------------------------------------
+
+
+def _he_conv(rng: np.random.Generator, kh, kw, cin, cout) -> dict:
+    fan_in = kh * kw * cin
+    std = math.sqrt(2.0 / fan_in)
+    w = (rng.standard_normal((kh, kw, cin, cout)) * std).astype(np.float32)
+    return {"w": w, "b": np.zeros((cout,), np.float32)}
+
+
+def _bn_init(c: int) -> tuple[dict, dict]:
+    params = {"scale": np.ones((c,), np.float32), "offset": np.zeros((c,), np.float32)}
+    state = {"mean": np.zeros((c,), np.float32), "var": np.ones((c,), np.float32)}
+    return params, state
+
+
+def _res_block_init(rng: np.random.Generator, cin: int, cout: int) -> tuple[dict, dict]:
+    bn1_p, bn1_s = _bn_init(cin)
+    bn2_p, bn2_s = _bn_init(cout)
+    params = {
+        "bn1": bn1_p,
+        "conv1": _he_conv(rng, 3, 3, cin, cout),
+        "bn2": bn2_p,
+        "conv2": _he_conv(rng, 3, 3, cout, cout),
+    }
+    state = {"bn1": bn1_s, "bn2": bn2_s}
+    if cin != cout:
+        params["proj"] = _he_conv(rng, 1, 1, cin, cout)
+    return params, state
+
+
+def init_resunet(seed: int, cfg: ResUNetConfig) -> tuple[dict, dict]:
+    """Initial ``(params, state)`` numpy trees, equal to the JAX package's.
+
+    He-normal convolution kernels (HWIO) and zero biases, BN scale 1 and
+    offset 0, running mean 0 and variance 1, drawn from
+    ``np.random.default_rng(np.random.Philox(seed))`` in the JAX package's
+    order. Load them with :func:`floodsr_tpu_torch.nn.checkpoint.params_from_jax`.
+    """
+    rng = np.random.default_rng(np.random.Philox(int(seed)))
+    params: dict = {"stem": _he_conv(rng, 3, 3, 2, cfg.base_filters)}
+    state: dict = {}
+
+    enc_p, enc_s = [], []
+    cin = cfg.base_filters
+    for w in cfg.widths:
+        blocks_p, blocks_s = [], []
+        for _ in range(cfg.enc_blocks):
+            bp, bs = _res_block_init(rng, cin, w)
+            blocks_p.append(bp)
+            blocks_s.append(bs)
+            cin = w
+        enc_p.append(blocks_p)
+        enc_s.append(blocks_s)
+    params["enc"], state["enc"] = enc_p, enc_s
+
+    dec_p, dec_s = [], []
+    for w in reversed(cfg.widths[:-1]):
+        stage_p: dict = {"up": _he_conv(rng, 2, 2, cin, w)}
+        cin = 2 * w  # skip concat
+        blocks_p, blocks_s = [], []
+        for _ in range(cfg.dec_blocks):
+            bp, bs = _res_block_init(rng, cin, w)
+            blocks_p.append(bp)
+            blocks_s.append(bs)
+            cin = w
+        stage_p["blocks"] = blocks_p
+        dec_p.append(stage_p)
+        dec_s.append({"blocks": blocks_s})
+    params["dec"], state["dec"] = dec_p, dec_s
+
+    s2d = int(cfg.hr_s2d)
+    assert cfg.scale % s2d == 0, f"hr_s2d={s2d} must divide scale={cfg.scale}"
+    s0, s1 = split_scale(cfg.scale // s2d)
+    hr_width = cfg.base_filters * s2d
+    params["sr_up1"] = _he_conv(rng, s0, s0, cin, cfg.base_filters)
+    params["sr_up2"] = _he_conv(rng, s1, s1, cfg.base_filters, hr_width)
+
+    params["dem_feat"] = _he_conv(rng, 3, 3, s2d * s2d, cfg.fuse_filters)
+    fuse_p, fuse_s = [], []
+    cin = hr_width + cfg.fuse_filters
+    for _ in range(cfg.fuse_blocks):
+        bp, bs = _res_block_init(rng, cin, hr_width)
+        fuse_p.append(bp)
+        fuse_s.append(bs)
+        cin = hr_width
+    params["fuse"], state["fuse"] = fuse_p, fuse_s
+
+    params["head"] = _he_conv(rng, 1, 1, hr_width, s2d * s2d)
+    return params, state
+
+
+def count_params(params: Any) -> int:
+    """Number of values in a numpy parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(np.shape(params)))
 
 
 def resolve_precision_policy(
@@ -205,6 +319,26 @@ class BatchNorm(nn.Module):
         c = self.offset - self.scale * self.mean * inv
         return a.to(dtype), c.to(dtype)
 
+    def batch_affine(
+        self, x: torch.Tensor, eps: float, momentum: float
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training batch norm of NCHW ``x``: ``(y, new_mean, new_var)``.
+
+        The batch mean and biased variance over N, H and W, computed in f32
+        and rounded to the dtype of ``x`` (``jnp.mean``/``jnp.var`` of a bf16
+        array), normalize ``x`` through the same folded affine as
+        :meth:`folded`; the gradient flows through both. The new running
+        stats, ``momentum·old + (1 − momentum)·batch`` in f32, are detached.
+        """
+        var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3), correction=0)
+        mean, var = mean.to(x.dtype).to(torch.float32), var.to(x.dtype).to(torch.float32)
+        new_mean = momentum * self.mean + (1 - momentum) * mean.detach()
+        new_var = momentum * self.var + (1 - momentum) * var.detach()
+        inv = torch.rsqrt(var + eps)
+        a = (self.scale * inv).to(x.dtype)
+        c = (self.offset - self.scale * mean * inv).to(x.dtype)
+        return x * a[None, :, None, None] + c[None, :, None, None], new_mean, new_var
+
 
 def _bf16_valued(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16, held in f32 (a no-op upcast for a bf16 tensor)."""
@@ -267,13 +401,17 @@ class ResBlock(nn.Module):
         self.conv2 = Conv(3, 3, cout, cout)
         self.proj = Conv(1, 1, cin, cout) if cin != cout else None
 
-    def forward(self, x: torch.Tensor, eps: float, stride: int = 1) -> torch.Tensor:
-        a1, c1 = self.bn1.folded(eps, x.dtype)
-        y = torch.relu(x * a1[None, :, None, None] + c1[None, :, None, None])
-        y = conv2d_same(y, self.conv1, stride)
-        a2, c2 = self.bn2.folded(eps, x.dtype)
-        y = torch.relu(y * a2[None, :, None, None] + c2[None, :, None, None])
-        y = conv2d_same(y, self.conv2)
+    def forward(
+        self, x: torch.Tensor, eps: float, stride: int = 1,
+        stats: "dict | None" = None, momentum: float = 0.99,
+    ) -> torch.Tensor:
+        """Inference batch norm from the running stats; with ``stats`` (a dict)
+        training batch norm, each :class:`BatchNorm`'s new running stats
+        stored in ``stats`` under the module."""
+        y = self._bn(self.bn1, x, eps, stats, momentum)
+        y = conv2d_same(torch.relu(y), self.conv1, stride)
+        y = self._bn(self.bn2, y, eps, stats, momentum)
+        y = conv2d_same(torch.relu(y), self.conv2)
         if self.proj is not None:
             shortcut = conv2d_same(x, self.proj, stride)
         elif stride != 1:
@@ -281,6 +419,15 @@ class ResBlock(nn.Module):
         else:
             shortcut = x
         return y + shortcut
+
+    @staticmethod
+    def _bn(bn: BatchNorm, x: torch.Tensor, eps: float, stats, momentum: float) -> torch.Tensor:
+        if stats is None:
+            a, c = bn.folded(eps, x.dtype)
+            return x * a[None, :, None, None] + c[None, :, None, None]
+        y, new_mean, new_var = bn.batch_affine(x, eps, momentum)
+        stats[bn] = (new_mean, new_var)
+        return y
 
 
 class DecoderStage(nn.Module):
@@ -361,6 +508,11 @@ class ResUNet(nn.Module):
         """Stem + UNet encoder/decoder: NHWC inputs → ``[N,h,w,f]`` NHWC features
         in the trunk stage's dtype (``precision``: a policy name, dict or
         resolved policy; ``None`` is ``f32``)."""
+        return self._trunk(depth_lr, dem_hr, resolve_precision_policy(precision))
+
+    def _trunk(
+        self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, stage: dict, stats=None
+    ) -> torch.Tensor:
         cfg = self.cfg
         if depth_lr.ndim != 4 or dem_hr.ndim != 4:
             raise AssertionError(
@@ -373,13 +525,13 @@ class ResUNet(nn.Module):
                 f"LR spatial dims {tuple(depth_lr.shape[1:3])} must be divisible by "
                 f"2^levels={divisor} for the UNet skip shapes to line up"
             )
-        x_dtype = resolve_precision_policy(precision)["trunk"]
+        x_dtype = stage["trunk"]
         with bf16_products(x_dtype == torch.bfloat16 and depth_lr.is_cuda):
-            return self._trunk(depth_lr.to(x_dtype), dem_hr.to(x_dtype))
+            return self._trunk_body(depth_lr.to(x_dtype), dem_hr.to(x_dtype), stats)
 
-    def _trunk(self, depth_lr: torch.Tensor, dem_hr: torch.Tensor) -> torch.Tensor:
+    def _trunk_body(self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, stats) -> torch.Tensor:
         cfg = self.cfg
-        eps = cfg.bn_eps
+        bn = dict(eps=cfg.bn_eps, stats=stats, momentum=cfg.bn_momentum)
         s = cfg.scale
         n, hh, ww, c = dem_hr.shape
         dem_lr = dem_hr.reshape(n, hh // s, s, ww // s, s, c).mean(dim=(2, 4))
@@ -390,7 +542,7 @@ class ResUNet(nn.Module):
         for stage, blocks in enumerate(self.enc):
             for bi, block in enumerate(blocks):
                 stride = 2 if (stage > 0 and bi == 0) else 1
-                x = block(x, eps, stride)
+                x = block(x, stride=stride, **bn)
             if stage < len(self.enc) - 1:
                 skips.append(x)
 
@@ -398,7 +550,7 @@ class ResUNet(nn.Module):
             x = conv_transpose_nhwc(x.permute(0, 2, 3, 1), stage.up, 2)
             x = torch.cat([x.permute(0, 3, 1, 2), skip], dim=1)
             for block in stage.blocks:
-                x = block(x, eps)
+                x = block(x, **bn)
         return x.permute(0, 2, 3, 1).contiguous()
 
     # -- tail ---------------------------------------------------------------
@@ -415,7 +567,11 @@ class ResUNet(nn.Module):
         tail stage is bf16; any other configuration runs the unfused blocks in
         the tail's dtype and the head in f32.
         """
-        stage = resolve_precision_policy(precision)
+        return self._tail(trunk_feat, dem_hr, resolve_precision_policy(precision))
+
+    def _tail(
+        self, trunk_feat: torch.Tensor, dem_hr: torch.Tensor, stage: dict, stats=None
+    ) -> torch.Tensor:
         sr_dtype, tail_dtype = stage["sr_up"], stage["tail"]
         on_cuda = trunk_feat.is_cuda
         cfg = self.cfg
@@ -427,7 +583,7 @@ class ResUNet(nn.Module):
             x = torch.relu(conv_transpose_nhwc(x, self.sr_up2, s1))
         x = x.to(tail_dtype)
         with bf16_products(tail_dtype == torch.bfloat16 and on_cuda):
-            out, with_head = self._fuse(x, dem_hr.to(tail_dtype))
+            out, with_head = self._fuse(x, dem_hr.to(tail_dtype), stats)
         if not with_head:
             # the unfused blocks leave the head to the f32 stage
             out = conv2d_same(
@@ -443,12 +599,13 @@ class ResUNet(nn.Module):
             )
         return out.to(torch.float32)
 
-    def _fuse(self, x: torch.Tensor, dem: torch.Tensor):
+    def _fuse(self, x: torch.Tensor, dem: torch.Tensor, stats=None):
         """DEM features + fuse blocks in the dtype of ``x`` (the tail stage's).
 
         Returns ``(out, with_head)``: the head's NHWC f32 output and ``True``
         when the fused ``hr_tail`` ran, else the last fuse block's NHWC output
-        and ``False`` (the caller's f32 head finishes it).
+        and ``False`` (the caller's f32 head finishes it). Training
+        (``stats`` given) always runs the unfused blocks.
         """
         cfg = self.cfg
         s2d = int(cfg.hr_s2d)
@@ -463,7 +620,7 @@ class ResUNet(nn.Module):
             )
         dem_feat = torch.relu(conv2d_same(dem.permute(0, 3, 1, 2), self.dem_feat))
 
-        if hr_tail_eligible(self):
+        if stats is None and hr_tail_eligible(self):
             from floodsr_tpu_torch.ops.kernels.hr_tail import (
                 hr_tail,
                 pack_hr_tail_bf16,
@@ -474,7 +631,8 @@ class ResUNet(nn.Module):
 
             # Pack (fold BN, reorder) once per set of weights, not per call:
             # the key changes when a tensor is replaced (``.to``) or written
-            # in place (``load_state_dict`` bumps ``_version``). At the widths
+            # in place (``load_state_dict``, an optimizer step and the BN stats'
+            # ``copy_`` bump ``_version``). At the widths
             # the tensor-core kernels take, the weight pack of the route in
             # use (hi/lo TF32 halves, or bf16) is built at its first call and
             # kept beside it.
@@ -503,7 +661,7 @@ class ResUNet(nn.Module):
             return out, True
         y = torch.cat([x.permute(0, 3, 1, 2), dem_feat], dim=1)
         for block in self.fuse:
-            y = block(y, cfg.bn_eps)
+            y = block(y, cfg.bn_eps, stats=stats, momentum=cfg.bn_momentum)
         return y.permute(0, 2, 3, 1), False
 
     @torch.no_grad()
@@ -512,3 +670,26 @@ class ResUNet(nn.Module):
     ) -> torch.Tensor:
         stage = resolve_precision_policy(precision)
         return self.tail(self.trunk(depth_lr, dem_hr, stage), dem_hr, stage)
+
+    def forward_train(
+        self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, precision=None
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Training forward with autograd: ``(pred [N,H,W,1] f32, new_stats)``.
+
+        Every batch norm normalizes by its batch statistics
+        (:meth:`BatchNorm.batch_affine`) and the tail runs unfused, as the
+        JAX package's ``resunet_apply(train=True)``. ``new_stats`` maps each
+        running-stat buffer's ``state_dict`` key (``enc.0.0.bn1.mean``) to its
+        new value; the buffers themselves are left as they are, for the
+        caller to write after the step.
+        """
+        stage = resolve_precision_policy(precision)
+        stats: dict = {}
+        with torch.enable_grad():
+            feat = self._trunk(depth_lr, dem_hr, stage, stats)
+            pred = self._tail(feat, dem_hr, stage, stats)
+        new_stats = {}
+        for name, module in self.named_modules():
+            if module in stats:
+                new_stats[f"{name}.mean"], new_stats[f"{name}.var"] = stats[module]
+        return pred, new_stats

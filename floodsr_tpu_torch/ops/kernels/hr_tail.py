@@ -94,7 +94,9 @@ def pack_hr_tail_weights(f1, f2, head, *, bn_eps: float) -> list[torch.Tensor]:
         return out
 
     ws = block(f1, True) + block(f2, False) + [hwio(head.w)[0, 0], head.b]
-    return [w.to(torch.float32).contiguous() for w in ws]
+    # detached: the kernels have no backward (:func:`hr_tail` refuses a
+    # tensor that requires grad), and a pack outlives the call that built it
+    return [w.detach().to(torch.float32).contiguous() for w in ws]
 
 
 def _affine_relu(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -352,6 +354,20 @@ def _check_inputs(sr, dem, weights) -> tuple[int, int, int, int, int, int, int]:
     return b, h, w, ca, cb, cm, ch
 
 
+def _refuse_grad(sr, dem, weights, tc_pack) -> None:
+    """Raise on a tensor that requires grad: the kernels have no backward, so
+    their output would silently cut the graph (and freeze the weights)."""
+    named = [("sr", sr), ("dem", dem)]
+    named += [(f"weight {k}", t) for k, t in zip(WEIGHT_KEYS, weights)]
+    named += [(f"packed weight {i}", t) for i, t in enumerate(tc_pack or ())]
+    for name, t in named:
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise ValueError(
+                f"hr_tail has no backward, but {name} requires grad: train through "
+                "the unfused tail (ResUNet.forward_train), or detach the tensor"
+            )
+
+
 def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
@@ -387,6 +403,7 @@ def hr_tail_cuda(
     global launches
     from floodsr_tpu_torch.ops.kernels import _build
 
+    _refuse_grad(sr, dem, weights, tc_pack)
     b, h, w, ca, cb, cm, ch = _check_inputs(sr, dem, weights)
     eligible = tc_eligible(ca, cb, cm, ch)
     if route is None:
@@ -468,12 +485,15 @@ def hr_tail(
     """Fused tail ``[B,H,W,Ca] + [B,H,W,Cb] → [B,H,W,Ch]``: kernel on CUDA, plain on CPU.
 
     ``mode`` "f32" or "bf16" (the module docstring says what each computes).
+    Raises on a tensor that requires grad, on either device: neither the
+    kernels nor this dispatch have a backward.
     ``tc_pack`` (:func:`pack_hr_tail_tc` for "f32", :func:`pack_hr_tail_bf16`
     for "bf16") is read only by the tensor-core routes on the card, which
     need it.
     """
     if mode not in ("f32", "bf16"):
         raise ValueError(f"mode must be 'f32' or 'bf16'; got {mode!r}")
+    _refuse_grad(sr, dem, weights, tc_pack)
     if sr.device.type == "cuda":
         return hr_tail_cuda(sr, dem, *weights, tc_pack=tc_pack, mode=mode)
     if sr.device.type != "cpu":

@@ -175,6 +175,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "floodsr_tpu_torch/nn/onnx_exec.py",
         "floodsr_tpu_torch/nn/onnx_convert.py",
         "floodsr_tpu_torch/eval/metrics.py",
+        "floodsr_tpu_torch/train/trainer.py",
+        "floodsr_tpu_torch/train/data.py",
+        "floodsr_tpu_torch/train/synth.py",
+        "floodsr_tpu_torch/parallel/streaming.py",
         "chip_smoke.py",
     } <= covered
     banned = ("jax", "floodsr_tpu")
