@@ -20,8 +20,10 @@ Phases (any failure raises and exits non-zero; none is caught):
    tensor-core route (3xTF32 ``wgmma``) at 8 tiles and at 1, and the direct
    route (f32 on the CUDA cores) at 8 tiles beside it; then the bf16
    arithmetic against ITS plain version (``hr_tail_reference_bf16``): the
-   bf16 ``wgmma`` route at 8 tiles and at 1, and the direct bf16 route at the
-   narrow test artifact's widths, timed beside the cuDNN chain in bf16;
+   bf16 ``wgmma`` route (TMA-fed bf16 operands) at 8 tiles and at 1, with its
+   launches' device times (traced) and ``-Xptxas -v`` lines, and the direct
+   bf16 route at the narrow test artifact's widths, timed beside the cuDNN
+   chain in bf16;
 5. ``tohr`` on every ``tests/data/synth_*`` case, metrics equal to
    ``case_spec.json`` at its precision; K2 launched on every case, K1 on
    ``synth_flagship`` (its tensor-core route); ``depth_metrics_torch`` on the
@@ -107,6 +109,7 @@ import argparse
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -486,6 +489,28 @@ def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -
     library_ms = time_ms(torch, cudnn_chain_bf16, reps=10)
     # One bf16 product per MAC on the tensor cores.
     bound_ms, bound_by = bound(nbytes=nbytes, nops=2 * macs, ops_per_s=PEAK_BF16_PER_S)
+    # The route's launches, traced over a few calls at 8 tiles and at 1; at
+    # one tile the trace's grids of the two convolution kernels too.
+    calls = 5
+    conv_kernels = ("conv_bf16_kernel", "conv_bf16_head_kernel")
+    by_launch = {}
+    for tiles in (b, 1):
+        prof = device_profile(torch, lambda: [
+            ht.hr_tail(sr[:tiles], dem[:tiles], *weights, tc_pack=pack, mode="bf16") for _ in range(calls)
+        ], grids_of=conv_kernels if tiles == 1 else ())
+        if prof["hr_tail_bf16_calls"] != calls:
+            raise AssertionError(f"bf16 route: {prof['hr_tail_bf16_calls']} traced calls of {calls}")
+        by_launch[tiles] = {k: v / calls for k, v in prof["hr_tail_bf16_ms_by_launch"].items()}
+    grids1 = prof["grids"]
+    blocks1 = min(int(np.prod(g)) for gs in grids1.values() for g in gs)
+    if blocks1 < 128:
+        raise AssertionError(f"bf16 route: a one-tile launch of {blocks1} blocks leaves SMs idle: {grids1}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[hr_tail bf16] ms by launch at {b} tiles {json.dumps(by_launch[b])}, at one tile "
+        f"{json.dumps(by_launch[1])} (traced grids {json.dumps(grids1)} on {sms} SMs)")
+    kernels = (*conv_kernels, "bf16_prepass_kernel")
+    for kernel, usage in ptxas_usage("hr_tail", kernels).items():
+        log(f"[hr_tail bf16] ptxas {kernel}: {usage}")
     log(
         f"[hr_tail bf16] max |kernel - plain| {err:.3e} (max |plain| {scale:.3e}, "
         f"{err / scale:.2e} of it; gate {BF16_GATE}; one tile {err1:.3e}; rms {rms_err:.3e}; "
@@ -510,9 +535,35 @@ def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -
         "launches": None,
         "bound_peak": "bf16 on the tensor cores",
         "ms_1_tile": ms1,
+        "ms_by_launch": by_launch[b],
+        "ms_by_launch_1_tile": by_launch[1],
+        "grids_1_tile": grids1,
         "direct_route_ms": direct_ms,
         "max_abs_err_share_of_max": err / scale,
     }
+
+
+def ptxas_usage(source: str, kernels: tuple) -> dict:
+    """``-Xptxas -v``'s registers, shared memory and spills for each instance of
+    the named kernels, from the last build log of ``csrc/<source>.cu``."""
+    from floodsr_tpu_torch.ops.kernels import _build
+
+    def label(mangled):
+        return next((k for k in kernels if k in mangled), None)
+
+    out, current = {}, None
+    for line in (_build.BUILD_DIR / f"{source}.log").read_text().splitlines():
+        m = re.search(r"(?:entry function|properties for|in the function) '?(\w+)", line)
+        if m:
+            current = label(m.group(1))
+            note = re.search(r"\(C\d+\)[^:]*", line)
+            if current is None or note is None:
+                continue
+            line = note.group(0)
+        elif not (current and ("registers" in line or "spill" in line)):
+            continue
+        out[current] = (out.get(current, "") + "; " + line.split(":", 1)[-1].strip()).strip("; ")
+    return out
 
 
 def narrow_tail_weights(torch, rng, ca: int, cb: int, cm: int, ch: int) -> list:
@@ -662,20 +713,26 @@ def scene_inputs(
 # traced device time.
 KERNEL_NAMES = {
     "tile_stats": ("tile_stats_one_read_kernel", "tile_stats_stream_kernel"),
-    "hr_tail": ("conv_tc_kernel", "affine_relu_conv3x3_kernel", "conv1x1_kernel"),
+    "hr_tail": (
+        "conv_tc_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel", "bf16_prepass_kernel",
+        "affine_relu_conv3x3_kernel", "conv1x1_kernel",
+    ),
     "relax_step": ("relax_step_kernel",),
 }
-# The four launches of one hr_tail call on the tensor-core route, in order.
+# The four convolution launches of one hr_tail call on either tensor-core
+# route, in order (the bf16 route's pre-pass comes before them).
 HR_TAIL_TC_LAUNCHES = ("f1.conv1", "f1.conv2 + proj", "f2.conv1", "f2.conv2 + y1 + head")
 
 
-def device_profile(torch, run) -> dict:
+def device_profile(torch, run, grids_of: tuple = ()) -> dict:
     """``torch.profiler`` over one ``run()``: device time by kernel and busy time.
 
     Only device-side events (kernels, copies, sets) are summed: an operator's
     row in ``key_averages()`` repeats the time of the kernels it launched.
     Busy time is the union of those events' intervals. Raises if a kernel of
     ``KERNEL_NAMES`` that ``run()`` launched shows no traced device time.
+    For each name in ``grids_of``, the grids its launches had, as the trace
+    records them (``grids``: name -> sorted distinct ``[x, y, z]``).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -693,7 +750,8 @@ def device_profile(torch, run) -> dict:
     wall_s = time.perf_counter() - t0
     spans = []
     by_name = {}
-    tc_events = []
+    # (conv_bf16_ matches the bf16 route's three body launches and its head's)
+    conv_events = {"conv_tc_kernel": [], "conv_bf16_": []}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -702,8 +760,9 @@ def device_profile(torch, run) -> dict:
             continue
         spans.append((t_start, t_end))
         by_name[evt.name] = by_name.get(evt.name, 0.0) + (t_end - t_start)
-        if "conv_tc_kernel" in evt.name:
-            tc_events.append((t_start, t_end - t_start))
+        for kname, events in conv_events.items():
+            if kname in evt.name:
+                events.append((t_start, t_end - t_start))
     if not spans:
         raise AssertionError("the profiler recorded no device events")
     spans.sort()
@@ -726,14 +785,34 @@ def device_profile(torch, run) -> dict:
                 f"matches {KERNEL_NAMES[kname]}"
             )
     # K1's device time by its place in a call (one stream, so start order is
-    # launch order).
-    tc_events.sort()
-    if len(tc_events) % len(HR_TAIL_TC_LAUNCHES):
-        raise AssertionError(f"{len(tc_events)} conv_tc_kernel launches are not whole hr_tail calls")
-    tc_by_launch = {
-        name: sum(us for _, us in tc_events[i :: len(HR_TAIL_TC_LAUNCHES)]) / 1e3
-        for i, name in enumerate(HR_TAIL_TC_LAUNCHES)
-    }
+    # launch order), for each tensor-core route.
+    by_launch = {}
+    for kname, events in conv_events.items():
+        events.sort()
+        if len(events) % len(HR_TAIL_TC_LAUNCHES):
+            raise AssertionError(f"{len(events)} {kname} launches are not whole hr_tail calls")
+        by_launch[kname] = {
+            name: sum(us for _, us in events[i :: len(HR_TAIL_TC_LAUNCHES)]) / 1e3
+            for i, name in enumerate(HR_TAIL_TC_LAUNCHES)
+        }
+    by_launch["conv_bf16_"]["pre-pass"] = sum(
+        us for name, us in by_name.items() if "bf16_prepass_kernel" in name
+    ) / 1e3
+    grids = {}
+    if grids_of:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as tmp:
+            trace_fp = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace_fp))
+            trace = json.loads(trace_fp.read_text())
+        for kname in grids_of:
+            found = {
+                tuple(evt["args"]["grid"])
+                for evt in trace["traceEvents"]
+                if evt.get("cat") == "kernel" and re.search(rf"\b{kname}\b", evt.get("name", ""))
+            }
+            if not found:
+                raise AssertionError(f"the trace records no grid of {kname}")
+            grids[kname] = sorted(list(g) for g in found)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     # The traced run's wall time includes the profiler's own overhead; the
     # caller sets the device busy time against an untraced run instead.
@@ -742,10 +821,13 @@ def device_profile(torch, run) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_event_sum_s": sum(by_name.values()) / 1e6,
         "kernel_device_ms": kernel_ms,
-        "hr_tail_tc_calls": len(tc_events) // len(HR_TAIL_TC_LAUNCHES),
-        "hr_tail_tc_ms_by_launch": tc_by_launch,
+        "hr_tail_tc_calls": len(conv_events["conv_tc_kernel"]) // len(HR_TAIL_TC_LAUNCHES),
+        "hr_tail_tc_ms_by_launch": by_launch["conv_tc_kernel"],
+        "hr_tail_bf16_calls": len(conv_events["conv_bf16_"]) // len(HR_TAIL_TC_LAUNCHES),
+        "hr_tail_bf16_ms_by_launch": by_launch["conv_bf16_"],
         "kernel_share_of_busy": {k: v / (busy_us / 1e3) for k, v in kernel_ms.items()},
         "top_device_ms": {k[:80]: v / 1e3 for k, v in top},
+        "grids": grids,
     }
 
 

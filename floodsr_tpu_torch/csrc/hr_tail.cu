@@ -14,9 +14,10 @@
 // as in the TPU kernel (:412-422): pixels outside the image load as 0 after
 // the affine and ReLU.
 //
-// Two routes, chosen by the wrapper from the channel counts alone. The input
-// is read as two channel ranges (sr | dem), so the concat is never
-// materialized. Intermediates are [B, H, W, Cm] f32 in device memory.
+// Two routes for each arithmetic, chosen by the wrapper from the channel
+// counts alone. The f32 routes read the input as two channel ranges (sr |
+// dem), so the concat is never materialized; their intermediates are
+// [B, H, W, Cm] f32 in device memory. The bf16 route stores bf16 operands.
 //
 //  - Tensor-core route (hr_tail_tc_launch; Cm = 128, Ch = 16, Ca and Cb
 //    multiples of 4, Ca + Cb a multiple of 16): four launches of
@@ -69,17 +70,49 @@
 //    :122-126). Inputs, intermediates, affines, biases and residual adds stay
 //    f32; at the four 3x3 convolutions and at the projection the activated
 //    operand is rounded to bf16 (round to nearest even) and multiplied with
-//    the bf16-rounded weight in ONE pass with f32 accumulation. It is the
-//    same conv_tc_kernel with BF16 = true: one wgmma m64n128k16
-//    .f32.bf16.bf16 per tap and 16-channel chunk in place of six m64n128k8
-//    TF32 products; the patch is staged once as bf16, no lo half, as
-//    plane[channel octet][patch pixel][8 channels] (a 2-byte type has 8
-//    elements in a core-matrix row of 16 bytes, so the tap offsets, SBO and
-//    LBO keep their byte values); the weights come from a bf16 pack
-//    [channel octet][cout][8], 4 KB per chunk and tap. The 1x1 head stays at
-//    three-pass precision, as the TPU kernel keeps it (head_mode "x3"): the
-//    3xTF32 product of the tensor-core route's epilogue, which carries 21
-//    mantissa bits of each operand where the TPU's bf16 split carries 16.
+//    the bf16-rounded weight in ONE pass with f32 accumulation; the 1x1 head
+//    stays at three-pass precision (head_mode "x3"), the 3xTF32 product of
+//    the tensor-core route's epilogue. A pre-pass, three launches of
+//    tc::bf::conv_bf16_kernel and one of conv_bf16_head_kernel, one wgmma
+//    m64n128k16 .f32.bf16.bf16 per tap and 16-channel chunk:
+//      * Each operand is produced once, as bf16, by the launch that computes
+//        it: an epilogue applies the NEXT convolution's affine and ReLU
+//        (__fmul_rn/__fadd_rn, __floats2bfloat162_rn) and stores NHWC bf16;
+//        bf16_prepass_kernel does it for f1.conv1's operand and writes bf16(x)
+//        for the projection. The same values the consumer would compute, bit
+//        for bit; y1 alone stays f32 (the last residual).
+//      * TMA brings them in: a 4-D tensor map (channels, W, H, B) per
+//        operand, a box of 8 channels x 66 x 4 rows per channel octet, no
+//        swizzle, so an octet lands as [row][column][8]: the K-major core
+//        matrices wgmma reads with LBO = the octet's plane and SBO = 128, and
+//        every tap is a constant offset. Elements outside the tensor land as
+//        zeros, which is the SAME padding after the activation: the image
+//        edges need no code. The maps are encoded per call by
+//        cuTensorMapEncodeTiled, looked up at run time with
+//        cudaGetDriverEntryPoint, so the library links no -lcuda.
+//      * One barrier round per chunk: a ring stage holds the chunk's patch and
+//        its nine weight slabs (36 KB, one bulk copy), and each MMA
+//        warpgroup issues 9 wgmma between two rounds. The projection reads
+//        bf16(x) at the unit's own pixels, five chunks a stage, after the
+//        3x3 chunks. The sums keep the order of the route before this one
+//        (residual first, chunk outer, tap inner), so the result is the same
+//        bit for bit.
+//      * A unit is 2 image rows x 64 columns: one 64-pixel GEMM tile per MMA
+//        warpgroup (64 accumulators a thread); a 128x128 tile is 128 units, so
+//        the scene's call of one tile fills the card. Units of 4 rows (256
+//        pixels a weight read) were slower: with 4 MMA warpgroups ptxas
+//        budgets 96 registers and spills, with 2 warpgroups of two tiles each
+//        it serializes the wgmma (C7515).
+//      * The three body launches are one persistent kernel
+//        (conv_bf16_kernel, a block an SM, 3 ring stages): a producer warp
+//        runs ahead across units, the MMA warpgroups hand each finished tile
+//        (f32) to an epilogue warpgroup through shared memory and go on to
+//        the next unit, and the epilogue warpgroup adds the biases, stores y1
+//        where asked and the next operand in bf16, 16 bytes a thread. The
+//        head's launch (conv_bf16_head_kernel, 4 stages) takes a unit a
+//        block: the residual starts its sums and its y tile goes over the
+//        idle ring.
+//      * A barrier that is not reached within seconds traps.
 //  - Direct route (hr_tail_launch; any channel counts): the first version of
 //    this port, f32 FMA on the CUDA cores, six launches (proj, four 3x3, the
 //    head). affine_relu_conv3x3 computes 8 rows x 32 columns x 32 output
@@ -104,10 +137,25 @@
 // needs at peak, three quarters of the SM's 128 bytes a clock before the
 // stagers' and the bulk copies' writes; a block's fill and epilogue are not
 // overlapped with another block's sums (168 registers a thread and 169 KB of
-// shared memory allow one block an SM). The bf16 route does one product per
-// MAC: 170.2 GFLOP at 8 tiles over 989 TFLOP/s dense bf16 is 0.172 ms, and its
-// four launches still round-trip the f32 intermediates through device memory.
+// shared memory allow one block an SM).
+// The bf16 route does one product per MAC: 170.2 GFLOP at 8 tiles over 989
+// TFLOP/s dense bf16 is 0.172 ms. Its launches also move 0.6 GB at 8 tiles
+// (the pre-pass 168 MB, the bf16 operands read with their halo and written,
+// y1 written and read in f32): 0.18 ms at 3.35 TB/s, as much as the
+// operations. The products themselves run at the tensor cores' peak from this layout (a
+// loop of the same wgmma on the same operands: 98% of 989 TFLOP/s). What
+// holds the route above its bound, measured with clock counters in a copy of
+// the kernel on an H100: the body launches' MMA warpgroups wait for their
+// stages a third of their time. A chunk brings 45 KB (the patch and the
+// 36 KB of its weights) for 128 pixels, and at that rate all 132 SMs
+// together read about 6 TB/s from L2: the loads, not the tensor cores, set
+// the pace. Sharing each weight slab between the two blocks of a cluster
+// (multicast) was tried and was slower.
+// -Xptxas -v (nvcc 12.9, sm_90a): conv_bf16_kernel and conv_bf16_head_kernel
+// 90 registers each, no spills; 207,824 and 199,880 bytes of dynamic shared
+// memory; bf16_prepass_kernel 24 registers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -381,19 +429,13 @@ constexpr int PLANE = PLANE_PIX * 16;     // bytes: [pixel][one 16-byte row of c
 constexpr int NPX = (PW + kPixLanes - 1) / kPixLanes;
 constexpr int QB = N * 16;                // bytes of one plane of weights: [cout][16-byte row]
 
-// Stage sizes by operand type. A 16-byte row holds 4 TF32 channels or 8 bf16
-// channels, so a 16-channel chunk is four planes of hi and four of lo in
-// 3xTF32, and two planes (one k16 step) in bf16.
-template <bool BF16>
-struct Geo {
-  static constexpr int ROW_CH = BF16 ? 8 : 4;          // channels in a 16-byte row
-  static constexpr int PLANES = CK / ROW_CH;           // planes of one chunk
-  static constexpr int A_HALF = PLANES * PLANE;        // the hi (or only) patch
-  static constexpr int A_STAGE = (BF16 ? 1 : 2) * A_HALF;  // hi then lo
-  static constexpr int B_HALF = PLANES * QB;           // hi (or only) weights of a ring stage
-  static constexpr int B_STAGE = (BF16 ? 1 : 2) * B_HALF;
-  static constexpr int PIPE = 2 * A_STAGE + NB * B_STAGE;  // two patch stages, the ring
-};
+// Stage sizes. A 16-byte row holds 4 TF32 channels, so a 16-channel chunk is
+// four planes of hi and four of lo.
+constexpr int A_HALF = (CK / 4) * PLANE;    // the hi patch
+constexpr int A_STAGE = 2 * A_HALF;         // hi then lo
+constexpr int B_HALF = (CK / 4) * QB;       // hi weights of a ring stage
+constexpr int B_STAGE = 2 * B_HALF;
+constexpr int PIPE = 2 * A_STAGE + NB * B_STAGE;  // two patch stages, the ring
 
 constexpr int HEAD_N = 16;                       // output channels of the fused 1x1 head
 constexpr int HEAD_W_BYTES = 2 * N * HEAD_N * 4;  // its hi and lo weights
@@ -404,10 +446,9 @@ constexpr int Y_HALF = (N / 4) * Y_PLANE;        // the hi (or lo) y tile of one
 // pipeline's buffers, which with HEAD must also hold the two warpgroups' hi
 // and lo y tiles once they are idle. BYTES: the pipeline, the head's weights,
 // 2 + 2 + NB + NB + 1 barriers.
-template <bool HEAD, bool BF16>
+template <bool HEAD>
 struct Smem {
-  static constexpr int PIPE =
-      (HEAD && 4 * Y_HALF > Geo<BF16>::PIPE) ? 4 * Y_HALF : Geo<BF16>::PIPE;
+  static constexpr int PIPE = (HEAD && 4 * Y_HALF > tc::PIPE) ? 4 * Y_HALF : tc::PIPE;
   static constexpr int BYTES = PIPE + (HEAD ? HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
 };
 
@@ -522,8 +563,10 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// One k16 step in bf16: both operands K-major from shared memory.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+// One k16 step in bf16: both operands K-major from shared memory; with
+// accumulate 0 the sums start from the products (d is not read).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -555,7 +598,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b) {
@@ -586,18 +629,12 @@ __device__ __forceinline__ float act(float raw, float a, float c) {
 // [hi|lo][CK/4][N][4] per (chunk, tap) of x, then one per chunk of x2. Every
 // channel count is a multiple of 4, ca + cb and c2a + c2b multiples of CK.
 //
-// With BF16 every operand of these products (the activated patch, the raw 1x1
-// input, the weights) is its nearest bf16 value and a product is one pass:
-// the patch is staged as plane[channel octet][pixel][8 channels] bf16 and
-// wpack holds one slab [CK/8][N][8] of bf16 per (chunk, tap). Sums, biases and
-// the residual stay f32, and so does the head below.
-//
 // With HEAD, the result y is not stored: out[b, y, x, :16] = y @ head_w +
 // head_b. Each warpgroup writes a 64-pixel tile of y, split into
 // hi and lo, over the idle pipeline buffers in the A-operand layout and
 // multiplies it with the head's hi/lo weights (head_pack: N/CK slabs of
 // [hi|lo][CK/4][16][4], loaded once at the start) in 16 more k8 steps.
-template <bool HEAD, bool BF16>
+template <bool HEAD>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ aff_a, const float* __restrict__ aff_c,
@@ -606,17 +643,12 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ bias2, const float* res,
                const float* __restrict__ head_pack, const float* __restrict__ head_bias,
                float* out, int H, int W) {
-  using G = Geo<BF16>;
-  constexpr int A_STAGE = G::A_STAGE;
-  constexpr int A_HALF = G::A_HALF;
-  constexpr int B_STAGE = G::B_STAGE;
-  constexpr int B_HALF = G::B_HALF;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* a_buf = smem;
   unsigned char* b_buf = smem + 2 * A_STAGE;
   const uint32_t a_smem = smem_u32(a_buf);
   const uint32_t b_smem = smem_u32(b_buf);
-  const uint32_t h_smem = a_smem + Smem<HEAD, BF16>::PIPE;  // the head's weights, hi then lo per slab
+  const uint32_t h_smem = a_smem + Smem<HEAD>::PIPE;  // the head's weights, hi then lo per slab
   const uint32_t bars = h_smem + (HEAD ? HEAD_W_BYTES : 0);
   const uint32_t full_a = bars;             // [2] the stagers' arrivals
   const uint32_t empty_a = bars + 16;       // [2] one arrival per consumer warp
@@ -691,27 +723,18 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         const uint32_t a_tap = a_rows + (ky * PW + kx) * 16;
         const uint32_t b_hi = b_smem + sb * B_STAGE;
         wgmma_fence();
-        if constexpr (BF16) {
-          // One k16 step covers the chunk: the two octet planes are the two
-          // core matrices along K.
-          const uint64_t db = smem_desc(b_hi, QB, 128);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            wgmma_bf16(acc[mt], smem_desc(a_tap + mt * PW * 16, PLANE, 128), db);
-        } else {
+        for (int kk = 0; kk < CK / 8; ++kk) {
+          const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
+          const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
 #pragma unroll
-          for (int kk = 0; kk < CK / 8; ++kk) {
-            const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
-            const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
-              const uint64_t dah = smem_desc(a0, PLANE, 128);
-              const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
-              wgmma_tf32(acc[mt], dal, dbh);  // small terms first
-              wgmma_tf32(acc[mt], dah, dbl);
-              wgmma_tf32(acc[mt], dah, dbh);
-            }
+          for (int mt = 0; mt < 2; ++mt) {
+            const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
+            const uint64_t dah = smem_desc(a0, PLANE, 128);
+            const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
+            wgmma_tf32(acc[mt], dal, dbh);  // small terms first
+            wgmma_tf32(acc[mt], dah, dbl);
+            wgmma_tf32(acc[mt], dah, dbh);
           }
         }
         wgmma_commit();
@@ -874,10 +897,8 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         fa = *reinterpret_cast<const float4*>(aff_a + gc);
         fc = *reinterpret_cast<const float4*>(aff_c + gc);
       }
-      // TF32: plane q, a 16-byte row of 4 channels. bf16: plane q/2, this
-      // quad's 8 bytes of the 16-byte row of 8 channels.
-      unsigned char* hi_plane = BF16 ? a_buf + sa * A_STAGE + (q >> 1) * PLANE + (q & 1) * 8
-                                     : a_buf + sa * A_STAGE + q * PLANE;
+      // plane q: a 16-byte row of 4 channels
+      unsigned char* hi_plane = a_buf + sa * A_STAGE + q * PLANE;
       // Two patch rows a step, so six loads are in flight per thread.
       for (int py0 = 0; py0 < PH; py0 += 2) {
         float4 raw[2][NPX];
@@ -912,21 +933,13 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
             }
             if (!ok[r][j]) v = make_float4(0.f, 0.f, 0.f, 0.f);
             unsigned char* dst = hi_plane + ((py0 + r) * PW + px) * 16;
-            if constexpr (BF16) {
-              // round to nearest even; the lower address holds the lower channel
-              __nv_bfloat162 h[2];
-              h[0] = __floats2bfloat162_rn(v.x, v.y);
-              h[1] = __floats2bfloat162_rn(v.z, v.w);
-              *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
-            } else {
-              float4 hi, lo;
-              hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
-              hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
-              hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
-              hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
-              *reinterpret_cast<float4*>(dst) = hi;
-              *reinterpret_cast<float4*>(dst + A_HALF) = lo;
-            }
+            float4 hi, lo;
+            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+            hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
+            hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
+            *reinterpret_cast<float4*>(dst) = hi;
+            *reinterpret_cast<float4*>(dst + A_HALF) = lo;
           }
         }
       }
@@ -937,14 +950,14 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
   }
 }
 
-template <bool HEAD, bool BF16>
+template <bool HEAD>
 cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float* a,
                    const float* c, const float* x2a, int c2a, const float* x2b, int c2b,
                    const float* wpack, const float* bias, const float* bias2,
                    const float* res, const float* head_pack, const float* head_bias,
                    float* out, int B, int H, int W, cudaStream_t stream) {
-  auto kern = conv_tc_kernel<HEAD, BF16>;
-  constexpr int smem = Smem<HEAD, BF16>::BYTES;
+  auto kern = conv_tc_kernel<HEAD>;
+  constexpr int smem = Smem<HEAD>::BYTES;
   // The opt-in to more than 48 KB of dynamic shared memory holds for the life
   // of the process: set it at this kernel's first launch on each device.
   constexpr int kMaxDevices = 64;
@@ -962,6 +975,574 @@ cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float
                                          bias2, res, head_pack, head_bias, out, H, W);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bf16 route: one implicit-GEMM 3x3 convolution on wgmma m64n128k16, its
+// operands brought in by TMA, already activated and rounded to bf16.
+// ---------------------------------------------------------------------------
+
+namespace bf {
+
+// A unit is 2 image rows x 64 columns: one 64-pixel GEMM tile (an image row)
+// per MMA warpgroup, 64 accumulators a thread. A 128x128 tile is 128 units,
+// so the scene's call of one tile fills the card.
+constexpr int TR = 2;                    // image rows of a unit
+constexpr int PH = TR + 2;               // rows of its patch (halo 1)
+constexpr int BOX = PH * PW * 16;        // one channel octet of the patch, [row][col][8]: 4224 B
+constexpr int A_CHUNK = 2 * BOX;         // a chunk's two octets
+constexpr int W_SLAB = 2 * QB;           // one (chunk, tap) slab [octet][N][8]: 4 KB
+constexpr int W_CHUNK = TAPS * W_SLAB;   // a chunk's nine slabs, contiguous in the pack: 36 KB
+constexpr int STAGE = A_CHUNK + W_CHUNK; // the patch, then the nine slabs
+constexpr int XPLANE = TR * TWX * 16;    // one octet of the unit's own pixels: 2 KB
+constexpr int XCHUNK = 2 * XPLANE + W_SLAB;  // a projection chunk: x and its slab
+constexpr int KP = STAGE / XCHUNK;       // projection chunks a stage (5)
+// The epilogue's per-channel vectors, staged once: bias, bias2, next_a, next_c.
+constexpr int VEC_BYTES = 4 * N * 4;
+static_assert(BOX % 128 == 0, "TMA destinations are 128-byte aligned");
+
+// ---- the body kernel (f1.conv1, f1.conv2 + proj, f2.conv1): persistent ----
+// Warpgroups 0 and 1 multiply, warpgroup 2 runs the epilogue, warp 12 loads.
+// A block walks units with a stride of the grid; the loads run ahead across
+// units, and the MMA warpgroups hand each finished tile to the epilogue
+// warpgroup through shared memory and go on to the next unit, so neither a
+// unit's fill nor its epilogue leaves the tensor cores idle.
+constexpr int kBodyThreads = 416;
+constexpr int NS_BODY = 3;               // ring stages
+constexpr int T_ROW = (N + 8) * 4;       // a pixel's f32 row in a handed-over tile, padded
+constexpr int T_TILE = TWX * T_ROW;      // one MMA warpgroup's tile: 34 KB
+constexpr int BODY_SMEM = 128 + NS_BODY * STAGE + TR * T_TILE + VEC_BYTES + (2 * NS_BODY + 4) * 8;
+static_assert(BODY_SMEM <= 232448, "a block's shared memory");
+
+// ---- the head kernel (f2.conv2 + y1 + head): a unit a block ----
+constexpr int kHeadThreads = 288;        // MMA warpgroups 0 and 1, producer warp 8
+constexpr int NS_HEAD = 4;
+// The head's y tile of one warpgroup, half of its channels at a time:
+// [channel quad][64 pixels][4] f32, hi then lo.
+constexpr int YH_HALF = (N / 8) * Y_PLANE;  // 16 KB
+constexpr int HEAD_SMEM = 128 + NS_HEAD * STAGE + HEAD_W_BYTES + VEC_BYTES + (2 * NS_HEAD + 1) * 8;
+static_assert(NS_HEAD * STAGE >= TR * 2 * YH_HALF, "the head's y tiles must fit over the ring");
+static_assert(HEAD_SMEM <= 232448, "a block's shared memory");
+
+// mbar_wait with its loop inside the PTX, so the compiler sees no divergent
+// branch around the wgmma that follow (a branch there makes ptxas serialize
+// them, C7520). It traps, as mbar_wait does, after about two seconds.
+__device__ __forceinline__ void mbar_wait_ptx(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4000000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on the barrier from the thread whose lane is 0, predicated in
+// the PTX (no branch).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(lane)
+      : "memory");
+}
+
+// Pin the accumulators at a pipeline stage's edges (an empty asm that reads
+// and writes each), so the compiler moves no definition of them into a stage
+// of wgmma in flight.
+__device__ __forceinline__ void fence_acc(float (&acc)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// TMA: the box at (channel c, column x, row y, image b) of a 4-D tensor map;
+// elements outside the tensor land as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c, int x,
+                                            int y, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// A unit's place: column block, row block, image.
+struct Unit {
+  int x0, y0, b;
+};
+__device__ __forceinline__ Unit unit_at(int u, int units_x, int units_y) {
+  Unit r;
+  r.x0 = (u % units_x) * TWX;
+  r.y0 = ((u / units_x) % units_y) * TR;
+  r.b = u / (units_x * units_y);
+  return r;
+}
+
+// The per-channel vectors into shared memory (0 for one that is not given),
+// by nthreads threads from thread t.
+__device__ __forceinline__ void load_vecs(float* vec, const float* bias, const float* bias2,
+                                          const float* next_a, const float* next_c, int t,
+                                          int nthreads) {
+  for (int i = t; i < 2 * N; i += nthreads) {
+    const int v = i / (N / 2);
+    const int c = (i % (N / 2)) * 2;
+    const float* src = v == 0 ? bias : v == 1 ? bias2 : v == 2 ? next_a : next_c;
+    *reinterpret_cast<float2*>(vec + v * N + c) =
+        src != nullptr ? *reinterpret_cast<const float2*>(src + c) : make_float2(0.f, 0.f);
+  }
+}
+
+// The producer's copies for one unit, from ring stage g on: per chunk of A
+// the patch (two octets, halo 1) and its nine weight slabs, then up to KP
+// projection chunks a stage (X at the unit's own pixels, one slab each).
+// Returns the next stage.
+template <int NS>
+__device__ __forceinline__ int produce_unit(int g, uint32_t ring, uint32_t full, uint32_t empty,
+                                            const CUtensorMap* patch_map,
+                                            const CUtensorMap* x_map, int n1, int n2,
+                                            const unsigned char* wsrc, Unit un) {
+  const int nstages = n1 + (n2 + KP - 1) / KP;
+  for (int s = 0; s < nstages; ++s, ++g) {
+    const int st = g % NS;
+    mbar_wait_ptx(empty + 8 * st, ((g / NS) & 1) ^ 1);
+    const uint32_t stage = ring + st * STAGE;
+    const uint32_t bar = full + 8 * st;
+    if (s < n1) {
+      mbar_arrive_expect_tx(bar, STAGE);
+      tma_load_4d(stage, patch_map, s * CK, un.x0 - 1, un.y0 - 1, un.b, bar);
+      tma_load_4d(stage + BOX, patch_map, s * CK + 8, un.x0 - 1, un.y0 - 1, un.b, bar);
+      bulk_load(stage + A_CHUNK, wsrc + (size_t)s * W_CHUNK, W_CHUNK, bar);
+    } else {
+      const int j0 = (s - n1) * KP;
+      const int k = min(KP, n2 - j0);
+      mbar_arrive_expect_tx(bar, k * XCHUNK);
+      for (int j = 0; j < k; ++j) {
+        const int c = j0 + j;
+        const uint32_t a0 = stage + j * 2 * XPLANE;
+        tma_load_4d(a0, x_map, c * CK, un.x0, un.y0, un.b, bar);
+        tma_load_4d(a0 + XPLANE, x_map, c * CK + 8, un.x0, un.y0, un.b, bar);
+        bulk_load(stage + KP * 2 * XPLANE + j * W_SLAB,
+                  wsrc + (size_t)n1 * W_CHUNK + (size_t)c * W_SLAB, W_SLAB, bar);
+      }
+    }
+  }
+  return g;
+}
+
+// One unit's sums for the warpgroup of row wg, from ring stage g on, onto
+// acc: the 3x3 chunks (9 taps, one k16 step each, between two barrier
+// rounds; the two octet planes are the two core matrices along K and every
+// tap is a constant offset from two descriptors: the address field counts
+// 16 bytes and shared addresses stay under 256 KB, so the sum never carries),
+// then the projection's chunks, KP a stage. The order of the sums is that of
+// the route before this one. Every stage is released when read. Returns the
+// next stage. Without from_acc the first product starts the sums (acc is not
+// read), where 0 would: the same sums.
+template <int NS>
+__device__ __forceinline__ int mma_unit(float (&acc)[NACC], bool from_acc, int g, uint32_t ring,
+                                        uint32_t full, uint32_t empty, int n1, int n2, int wg,
+                                        int lane) {
+  for (int s = 0; s < n1; ++s, ++g) {
+    const int st = g % NS;
+    mbar_wait_ptx(full + 8 * st, (g / NS) & 1);
+    const uint32_t stage = ring + st * STAGE;
+    const uint64_t da = smem_desc(stage + wg * PW * 16, BOX, 128);
+    const uint64_t db = smem_desc(stage + A_CHUNK, QB, 128);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int ky = tap / 3;
+      const int kx = tap - 3 * ky;
+      wgmma_bf16(acc, da + ky * PW + kx, db + tap * (W_SLAB / 16),
+                 tap > 0 || s > 0 || from_acc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+    // The stage before this one has been read.
+    if (s > 0) mbar_arrive_lane0(empty + 8 * ((g - 1) % NS), lane);
+  }
+  for (int j = 0; j < n2; ++j) {
+    const int jj = j % KP;
+    if (jj == 0) {
+      mbar_wait_ptx(full + 8 * (g % NS), (g / NS) & 1);
+      ++g;
+    }
+    const uint32_t stage = ring + ((g - 1) % NS) * STAGE;
+    const uint64_t da = smem_desc(stage + jj * 2 * XPLANE + wg * TWX * 16, XPLANE, 128);
+    const uint64_t db = smem_desc(stage + KP * 2 * XPLANE + jj * W_SLAB, QB, 128);
+    fence_acc(acc);
+    wgmma_fence();
+    wgmma_bf16(acc, da, db);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (jj == 0 && (n1 > 0 || j > 0)) mbar_arrive_lane0(empty + 8 * ((g - 2) % NS), lane);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  mbar_arrive_lane0(empty + 8 * ((g - 1) % NS), lane);
+  return g;
+}
+
+// v[b, y, x, :N] = sum over chunks c < n1, taps (ky, kx) of
+//   A[b, y+ky-1, x+kx-1, 16c .. 16c+15] . w[c, tap]
+// + sum over chunks c < n2 of X[b, y, x, 16c .. 16c+15] . w2[c]  (the projection)
+// + bias (+ bias2).
+// A (patch_map, bf16 NHWC) is the convolution's operand as the launch before
+// stored it: activated and rounded. TMA fills the pixels outside the image
+// with zeros, which is the SAME padding after the activation. X (x_map) is
+// bf16(x), read at the unit's own pixels. wpack: per chunk of A its nine
+// slabs [2][N][8], then one slab per chunk of X.
+// Outputs: out = v (f32) when given; out_act = bf16(relu(next_a * v +
+// next_c)), the next convolution's operand.
+__global__ void __launch_bounds__(kBodyThreads, 1)
+conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
+                 const __grid_constant__ CUtensorMap x_map, int n1, int n2,
+                 const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bias,
+                 const float* __restrict__ bias2, float* __restrict__ out,
+                 __nv_bfloat16* __restrict__ out_act, const float* __restrict__ next_a,
+                 const float* __restrict__ next_c, int H, int W, int units_x, int units_y,
+                 int units) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 127u) & ~127u;
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
+  unsigned char* tiles = ring_ptr + NS_BODY * STAGE;  // [TR] handed-over f32 tiles
+  float* vec = reinterpret_cast<float*>(tiles + TR * T_TILE);
+  const uint32_t bars = smem_u32(vec) + VEC_BYTES;
+  const uint32_t full = bars;                     // [NS] expect_tx + the copies' bytes
+  const uint32_t empty = bars + 8 * NS_BODY;      // [NS] the MMA warps' arrivals
+  const uint32_t tfull = bars + 16 * NS_BODY;     // [TR] a tile was handed over
+  const uint32_t tempty = tfull + 8 * TR;         // [TR] the epilogue has read it
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // warp-uniform as far as the compiler can tell (the role branch below)
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+
+  if (tid == 0) {
+    for (int s = 0; s < NS_BODY; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    for (int r = 0; r < TR; ++r) {
+      mbar_init(tfull + 8 * r, 128);
+      mbar_init(tempty + 8 * r, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (warp >= 8 && warp < 12) load_vecs(vec, bias, bias2, next_a, next_c, tid - 256, 128);
+  __syncthreads();
+
+  if (warp < 8) {
+    // ---- MMA warpgroups: warpgroup wg multiplies row wg of each unit ----
+    const int wg = warp >> 2;
+    const int wq = warp & 3;
+    unsigned char* tile = tiles + wg * T_TILE;
+    int g = 0;
+    float acc[NACC];
+    for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
+      g = mma_unit<NS_BODY>(acc, false, g, ring, full, empty, n1, n2, wg, lane);
+      // Hand the tile over once the epilogue has read the previous one.
+      mbar_wait_ptx(tempty + 8 * wg, (k & 1) ^ 1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(tile + px * T_ROW + col * 4) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+      mbar_arrive(tfull + 8 * wg);
+    }
+  } else if (warp < 12) {
+    // ---- epilogue warpgroup: 8 channels of a pixel a thread and piece ----
+    const int t = tid - 256;
+    const float* s_bias = vec;
+    const float* s_bias2 = vec + N;
+    const float* s_next_a = vec + 2 * N;
+    const float* s_next_c = vec + 3 * N;
+    for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
+      const Unit un = unit_at(u, units_x, units_y);
+#pragma unroll 1
+      for (int r = 0; r < TR; ++r) {
+        mbar_wait_ptx(tfull + 8 * r, k & 1);
+        const unsigned char* tile = tiles + r * T_TILE;
+        const int gy = un.y0 + r;
+#pragma unroll 2
+        for (int p = 0; p < TWX * (N / 8) / 128; ++p) {
+          const int piece = p * 128 + t;
+          const int px = piece / (N / 8);
+          const int c0 = (piece % (N / 8)) * 8;
+          const int gx = un.x0 + px;
+          float v[8];
+          *reinterpret_cast<float4*>(v) =
+              *reinterpret_cast<const float4*>(tile + px * T_ROW + c0 * 4);
+          *reinterpret_cast<float4*>(v + 4) =
+              *reinterpret_cast<const float4*>(tile + px * T_ROW + c0 * 4 + 16);
+          uint32_t h[4];
+#pragma unroll
+          for (int i = 0; i < 8; i += 2) {
+            const int col = c0 + i;
+            v[i] = v[i] + s_bias[col];
+            v[i + 1] = v[i + 1] + s_bias[col + 1];
+            if (bias2 != nullptr) {
+              v[i] = v[i] + s_bias2[col];
+              v[i + 1] = v[i + 1] + s_bias2[col + 1];
+            }
+            // the next convolution's operand: its affine and ReLU, then bf16
+            // (nearest even), the lower channel at the lower address
+            const __nv_bfloat162 b2 =
+                __floats2bfloat162_rn(act(v[i], s_next_a[col], s_next_c[col]),
+                                      act(v[i + 1], s_next_a[col + 1], s_next_c[col + 1]));
+            h[i / 2] = *reinterpret_cast<const uint32_t*>(&b2);
+          }
+          if (gy < H && gx < W) {
+            const size_t pix = ((size_t)un.b * H + gy) * W + gx;
+            if (out != nullptr) {
+              *reinterpret_cast<float4*>(out + pix * N + c0) = *reinterpret_cast<const float4*>(v);
+              *reinterpret_cast<float4*>(out + pix * N + c0 + 4) =
+                  *reinterpret_cast<const float4*>(v + 4);
+            }
+            *reinterpret_cast<uint4*>(out_act + pix * N + c0) =
+                make_uint4(h[0], h[1], h[2], h[3]);
+          }
+        }
+        mbar_arrive(tempty + 8 * r);
+      }
+    }
+  } else if (lane == 0) {
+    // ---- producer warp: one thread issues every copy of the ring ----
+    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wpack);
+    int g = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      g = produce_unit<NS_BODY>(g, ring, full, empty, &patch_map, &x_map, n1, n2, wsrc,
+                                unit_at(u, units_x, units_y));
+  }
+}
+
+// The last launch: out[b, y, x, :16] = (res + the 3x3 sums of patch_map's
+// operand + bias) @ head_w + head_b. The head is 3xTF32 (the same 48
+// products in the same order as conv_tc_kernel's head): each MMA warpgroup
+// writes its y tile, split into TF32 hi and lo, over its part of the idle
+// ring, half of its channels at a time, and runs the head's k8 steps on it.
+// A unit a block; the residual starts the sums.
+__global__ void __launch_bounds__(kHeadThreads, 1)
+conv_bf16_head_kernel(const __grid_constant__ CUtensorMap patch_map, int n1,
+                      const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bias,
+                      const float* __restrict__ res, const float* __restrict__ head_pack,
+                      const float* __restrict__ head_bias, float* __restrict__ out, int H,
+                      int W) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 127u) & ~127u;
+  unsigned char* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t h_smem = ring + NS_HEAD * STAGE;  // the head's weights, hi then lo per slab
+  float* vec = reinterpret_cast<float*>(ring_ptr + NS_HEAD * STAGE + HEAD_W_BYTES);
+  const uint32_t bars = smem_u32(vec) + VEC_BYTES;
+  const uint32_t full = bars;                // [NS] expect_tx + the copies' bytes
+  const uint32_t empty = bars + 8 * NS_HEAD; // [NS] the MMA warps' arrivals
+  const uint32_t full_h = bars + 16 * NS_HEAD;  // the head's weights have landed
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const Unit un = {(int)blockIdx.x * TWX, (int)blockIdx.y * TR, (int)blockIdx.z};
+
+  if (tid == 0) {
+    for (int s = 0; s < NS_HEAD; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(full_h, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (warp < 8) load_vecs(vec, bias, nullptr, nullptr, nullptr, tid, 256);
+  __syncthreads();
+
+  if (warp < 8) {
+    const int wg = warp >> 2;
+    const int wq = warp & 3;
+    const int gy = un.y0 + wg;
+    float acc[NACC];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
+      const bool live = gy < H && gx < W;
+      const size_t base = (((size_t)un.b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        // The residual starts the sums; its loads overlap the pipeline's fill.
+        float2 r = make_float2(0.f, 0.f);
+        if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
+        acc[4 * j + 2 * half] = r.x;
+        acc[4 * j + 2 * half + 1] = r.y;
+      }
+    }
+    mma_unit<NS_HEAD>(acc, true, 0, ring, full, empty, n1, 0, wg, lane);
+
+    // Both warpgroups have finished reading the ring.
+    named_barrier(1, 256);
+    mbar_wait_ptx(full_h, 0);
+    unsigned char* y_buf = ring_ptr + wg * 2 * YH_HALF;
+    const uint32_t y_smem = ring + wg * 2 * YH_HALF;
+    float hacc[HEAD_N / 2];
+#pragma unroll
+    for (int i = 0; i < HEAD_N / 2; ++i) hacc[i] = 0.f;
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+        for (int jh = 0; jh < N / 16; ++jh) {
+          const int j = kh * (N / 16) + jh;  // this half's column groups
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 bv = *reinterpret_cast<const float2*>(vec + col);
+          float2 v;
+          v.x = acc[4 * j + 2 * half] + bv.x;
+          v.y = acc[4 * j + 2 * half + 1] + bv.y;
+          float2 hi, lo;
+          hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+          hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+          const int lc = col - kh * N / 2;
+          unsigned char* dst = y_buf + (lc >> 2) * Y_PLANE + px * 16 + (lc & 3) * 4;
+          *reinterpret_cast<float2*>(dst) = hi;
+          *reinterpret_cast<float2*>(dst + YH_HALF) = lo;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_barrier(2 + wg, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < N / 16; ++k) {
+        const int ks = kh * N / 16 + k;  // the k8 step over all 128 channels
+        constexpr int HQ = HEAD_N * 16;  // bytes of one channel quad of head weights
+        const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HEAD_N * 4) + (ks & 1) * 2 * HQ;
+        const uint64_t dbh = smem_desc(hw, HQ, 128);
+        const uint64_t dbl = smem_desc(hw + CK * HEAD_N * 4, HQ, 128);
+        const uint64_t dah = smem_desc(y_smem + k * 2 * Y_PLANE, Y_PLANE, 128);
+        const uint64_t dal = smem_desc(y_smem + YH_HALF + k * 2 * Y_PLANE, Y_PLANE, 128);
+        wgmma_tf32(hacc, dal, dbh);
+        wgmma_tf32(hacc, dah, dbl);
+        wgmma_tf32(hacc, dah, dbh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < HEAD_N / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+      // This half's tile is read; the next one may overwrite it.
+      named_barrier(2 + wg, 128);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
+      if (gy >= H || gx >= W) continue;
+      const size_t base = (((size_t)un.b * H + gy) * W + gx) * HEAD_N + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < HEAD_N / 8; ++j) {
+        const float2 hb = *reinterpret_cast<const float2*>(head_bias + 8 * j + 2 * (lane & 3));
+        float2 v;
+        v.x = hacc[4 * j + 2 * half] + hb.x;
+        v.y = hacc[4 * j + 2 * half + 1] + hb.y;
+        *reinterpret_cast<float2*>(out + base + 8 * j) = v;
+      }
+    }
+  } else if (lane == 0) {
+    // ---- producer warp ----
+    mbar_arrive_expect_tx(full_h, HEAD_W_BYTES);
+    bulk_load(h_smem, head_pack, HEAD_W_BYTES, full_h);
+    produce_unit<NS_HEAD>(0, ring, full, empty, &patch_map, &patch_map, n1, 0,
+                          reinterpret_cast<const unsigned char*>(wpack), un);
+  }
+}
+
+// x = concat(sr, dem) -> x_act = bf16(relu(a * x + c)) (f1.conv1's operand)
+// and x_raw = bf16(x) (the projection's), NHWC bf16; one thread per 4 channels.
+__global__ void __launch_bounds__(256)
+bf16_prepass_kernel(const float* __restrict__ sr, int ca, const float* __restrict__ dem, int cb,
+                    const float* __restrict__ aff_a, const float* __restrict__ aff_c,
+                    __nv_bfloat16* __restrict__ x_act, __nv_bfloat16* __restrict__ x_raw,
+                    long long nquads) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nquads) return;
+  const int cin = ca + cb;
+  const long long pix = i / (cin / 4);
+  const int gc = (int)(i - pix * (cin / 4)) * 4;
+  const float4 v = gc < ca ? __ldg(reinterpret_cast<const float4*>(sr + pix * ca + gc))
+                           : __ldg(reinterpret_cast<const float4*>(dem + pix * cb + (gc - ca)));
+  const float4 fa = *reinterpret_cast<const float4*>(aff_a + gc);
+  const float4 fc = *reinterpret_cast<const float4*>(aff_c + gc);
+  __nv_bfloat162 h[2];
+  h[0] = __floats2bfloat162_rn(v.x, v.y);
+  h[1] = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(x_raw + pix * cin + gc) = *reinterpret_cast<const uint2*>(h);
+  h[0] = __floats2bfloat162_rn(act(v.x, fa.x, fc.x), act(v.y, fa.y, fc.y));
+  h[1] = __floats2bfloat162_rn(act(v.z, fa.z, fc.z), act(v.w, fa.w, fc.w));
+  *reinterpret_cast<uint2*>(x_act + pix * cin + gc) = *reinterpret_cast<const uint2*>(h);
+}
+
+// The opt-in to more than 48 KB of dynamic shared memory holds for the life
+// of the process: set it at a kernel's first launch on each device.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kern, int smem, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+cudaError_t launch_body(const CUtensorMap& patch_map, const CUtensorMap& x_map, int n1, int n2,
+                        const void* wpack, const float* bias, const float* bias2, float* out,
+                        void* out_act, const float* next_a, const float* next_c, int B, int H,
+                        int W, int sms, cudaStream_t stream) {
+  static bool done[64] = {};
+  cudaError_t err = opt_in(conv_bf16_kernel, BODY_SMEM, done);
+  if (err != cudaSuccess) return err;
+  const int units_x = (W + TWX - 1) / TWX;
+  const int units_y = (H + TR - 1) / TR;
+  const int units = units_x * units_y * B;
+  conv_bf16_kernel<<<units < sms ? units : sms, kBodyThreads, BODY_SMEM, stream>>>(
+      patch_map, x_map, n1, n2, reinterpret_cast<const __nv_bfloat16*>(wpack), bias, bias2, out,
+      reinterpret_cast<__nv_bfloat16*>(out_act), next_a, next_c, H, W, units_x, units_y, units);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_head(const CUtensorMap& patch_map, int n1, const void* wpack,
+                        const float* bias, const float* res, const float* head_pack,
+                        const float* head_bias, float* out, int B, int H, int W,
+                        cudaStream_t stream) {
+  static bool done[64] = {};
+  cudaError_t err = opt_in(conv_bf16_head_kernel, HEAD_SMEM, done);
+  if (err != cudaSuccess) return err;
+  dim3 grid((W + TWX - 1) / TWX, (H + TR - 1) / TR, B);
+  conv_bf16_head_kernel<<<grid, kHeadThreads, HEAD_SMEM, stream>>>(
+      patch_map, n1, reinterpret_cast<const __nv_bfloat16*>(wpack), bias, res, head_pack,
+      head_bias, out, H, W);
+  return cudaGetLastError();
+}
+
+}  // namespace bf
 
 // Positions in the packed tensor-core weight list (TC_PACK_KEYS in hr_tail.py).
 enum { P_F1_W1, P_F1_W2_PW, P_F2_W1, P_F2_W2, P_HEAD_W, N_PACKS };
@@ -1025,17 +1606,15 @@ extern "C" int hr_tail_bf16_direct_launch(const float* sr, const float* dem, int
                       true, stream_ptr);
 }
 
-// Tensor-core routes: the same chain, every convolution through
+// Tensor-core route: the same chain, every convolution through
 // tc::conv_tc_kernel. Needs cm == 128, ch == 16, ca % 4 == 0, cb % 4 == 0 and
 // (ca + cb) % 16 == 0 (the wrapper checks). weights as above (the affines and
 // biases are read from it); packs: tc::N_PACKS device pointers in
-// TC_PACK_KEYS order: for the 3xTF32 route the hi/lo TF32 weight slabs, for
-// the bf16 route (BF16) bf16 slabs for the four convolutions and the same
-// hi/lo TF32 slabs for the head.
-template <bool BF16>
-static int tc_chain(const float* sr, const float* dem, int B, int H, int W, int ca,
-                    int cb, const void* const* weights, const void* const* packs,
-                    float* buf_p, float* buf_y, float* out, void* stream_ptr) {
+// TC_PACK_KEYS order, the hi/lo TF32 weight slabs.
+extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
+                                 int W, int ca, int cb, const void* const* weights,
+                                 const void* const* packs, float* buf_p,
+                                 float* buf_y, float* out, void* stream_ptr) {
   const float* const* wt = reinterpret_cast<const float* const*>(weights);
   const float* const* pk = reinterpret_cast<const float* const*>(packs);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -1043,39 +1622,164 @@ static int tc_chain(const float* sr, const float* dem, int B, int H, int W, int 
   const float* none = nullptr;
   cudaError_t err;
   // y = conv1(relu(bn1 x))
-  err = tc::launch<false, BF16>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
-                                pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y, B, H,
-                                W, stream);
+  err = tc::launch<false>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
+                          pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y, B, H,
+                          W, stream);
   if (err != cudaSuccess) return (int)err;
   // y1 = conv2(relu(bn2 y)) + proj(x): the projection is ten more chunks of K
-  err = tc::launch<false, BF16>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
-                                pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
-                                buf_p, B, H, W, stream);
+  err = tc::launch<false>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
+                          pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
+                          buf_p, B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
   // z = conv1(relu(bn1 y1))
-  err = tc::launch<false, BF16>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
-                                pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y, B, H,
-                                W, stream);
+  err = tc::launch<false>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
+                          pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y, B, H,
+                          W, stream);
   if (err != cudaSuccess) return (int)err;
   // out = head(conv2(relu(bn2 z)) + y1): y2 never reaches device memory
-  err = tc::launch<true, BF16>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
-                               pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
-                               wt[HEAD_B], out, B, H, W, stream);
+  err = tc::launch<true>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
+                         pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
+                         wt[HEAD_B], out, B, H, W, stream);
   return (int)err;
 }
 
-extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
-                                 int W, int ca, int cb, const void* const* weights,
-                                 const void* const* packs, float* buf_p,
-                                 float* buf_y, float* out, void* stream_ptr) {
-  return tc_chain<false>(sr, dem, B, H, W, ca, cb, weights, packs, buf_p, buf_y, out,
-                         stream_ptr);
+// ---- bf16 route: tensor maps and the chain ----
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so
+// the library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Returned for a tensor map that cuTensorMapEncodeTiled refuses: kEncodeFailed
+// + its CUresult.
+constexpr int kEncodeFailed = 100000;
+
+static int encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return (int)cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return 0;
 }
 
-extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int H,
-                                   int W, int ca, int cb, const void* const* weights,
-                                   const void* const* packs, float* buf_p,
-                                   float* buf_y, float* out, void* stream_ptr) {
-  return tc_chain<true>(sr, dem, B, H, W, ca, cb, weights, packs, buf_p, buf_y, out,
-                        stream_ptr);
+// A 4-D map (channels, W, H, B) over a contiguous NHWC bf16 tensor, with a
+// box of 8 channels x box_w x box_h x 1: one channel octet lands as
+// [row][column][8], the K-major core-matrix layout. No swizzle; elements
+// outside the tensor load as zeros.
+static int tensor_map(CUtensorMap* map, const void* ptr, int C, int B, int H, int W, int box_w,
+                      int box_h) {
+  EncodeTiled fn = nullptr;
+  const int rc = encode_tiled(&fn);
+  if (rc != 0) return rc;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+// The current device's SM count, queried once per device: the body kernel's
+// persistent grid.
+static cudaError_t sm_count(int* sms) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && known[dev] > 0) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) known[dev] = *sms;
+  return err;
+}
+
+// The bf16 route's chain: the pre-pass, then the three body launches, each
+// storing the next one's operand, then the head's.
+static int bf16_chain(const float* sr, const float* dem, int B, int H, int W, int ca, int cb,
+                      const float* const* wt, const void* const* pk, void* x_act, void* x_raw,
+                      void* act_a, void* act_b, float* y1, float* out, cudaStream_t stream) {
+  namespace bf = tc::bf;
+  constexpr int CM = tc::N;
+  const int cin = ca + cb;
+  const float* none = nullptr;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long nquads = (long long)B * H * W * (cin / 4);
+  bf::bf16_prepass_kernel<<<(unsigned)((nquads + 255) / 256), 256, 0, stream>>>(
+      sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], reinterpret_cast<__nv_bfloat16*>(x_act),
+      reinterpret_cast<__nv_bfloat16*>(x_raw), nquads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap x_act_map, x_raw_map, a_map, b_map;
+  int rc;
+  if ((rc = tensor_map(&x_act_map, x_act, cin, B, H, W, tc::PW, bf::PH)) != 0) return rc;
+  if ((rc = tensor_map(&x_raw_map, x_raw, cin, B, H, W, tc::TWX, bf::TR)) != 0) return rc;
+  if ((rc = tensor_map(&a_map, act_a, CM, B, H, W, tc::PW, bf::PH)) != 0) return rc;
+  if ((rc = tensor_map(&b_map, act_b, CM, B, H, W, tc::PW, bf::PH)) != 0) return rc;
+  // act_a = bf16(relu(f1.bn2(conv1(x_act))))
+  err = bf::launch_body(x_act_map, x_act_map, cin / tc::CK, 0, pk[tc::P_F1_W1], wt[F1_B1], none,
+                        nullptr, act_a, wt[F1_A2], wt[F1_C2], B, H, W, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  // y1 = conv2(act_a) + proj(x_raw), f32 for the last residual;
+  // act_b = bf16(relu(f2.bn1(y1)))
+  err = bf::launch_body(a_map, x_raw_map, CM / tc::CK, cin / tc::CK, pk[tc::P_F1_W2_PW],
+                        wt[F1_B2], wt[F1_PB], y1, act_b, wt[F2_A1], wt[F2_C1], B, H, W, sms,
+                        stream);
+  if (err != cudaSuccess) return (int)err;
+  // act_a = bf16(relu(f2.bn2(conv1(act_b))))
+  err = bf::launch_body(b_map, b_map, CM / tc::CK, 0, pk[tc::P_F2_W1], wt[F2_B1], none, nullptr,
+                        act_a, wt[F2_A2], wt[F2_C2], B, H, W, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  // out = head(conv2(act_a) + y1): y2 never reaches device memory
+  err = bf::launch_head(a_map, CM / tc::CK, pk[tc::P_F2_W2], wt[F2_B2], y1,
+                        reinterpret_cast<const float*>(pk[tc::P_HEAD_W]), wt[HEAD_B], out, B, H,
+                        W, stream);
+  return (int)err;
+}
+
+// bf16 route (the TPU kernel's mode="bf16"), the widths of hr_tail_tc_launch.
+// packs: tc::N_PACKS device pointers in TC_PACK_KEYS order, bf16 slabs for the
+// four convolutions and hi/lo TF32 slabs for the head. Scratch: x_act and
+// x_raw [B,H,W,ca+cb] bf16, act_a and act_b [B,H,W,128] bf16, y1 [B,H,W,128]
+// f32; every buffer 16-byte aligned. A tensor map that cannot be encoded
+// returns kEncodeFailed + its CUresult.
+// The layout of hr_tail_bf16_launch's arguments: 2 from the signature
+// below on (the route before it took 13 arguments and exported no number).
+extern "C" int hr_tail_bf16_abi() { return 2; }
+
+extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int H, int W,
+                                   int ca, int cb, const void* const* weights,
+                                   const void* const* packs, void* x_act, void* x_raw,
+                                   void* act_a, void* act_b, float* y1, float* out,
+                                   void* stream_ptr) {
+  if (ca <= 0 || ca % 4 || cb % 4 || (ca + cb) % tc::CK) return (int)cudaErrorInvalidValue;
+  const void* aligned[] = {sr, dem, x_act, x_raw, act_a, act_b, y1, out};
+  for (const void* p : aligned)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < tc::N_PACKS; ++i)
+    if (reinterpret_cast<uintptr_t>(packs[i]) % 16) return (int)cudaErrorInvalidValue;
+  const float* const* wt = reinterpret_cast<const float* const*>(weights);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  return bf16_chain(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b, y1, out,
+                    stream);
 }

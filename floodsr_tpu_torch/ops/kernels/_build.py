@@ -4,8 +4,9 @@ Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library with a plain C interface under ``floodsr_tpu_torch/_build/`` (listed
 in ``.gitignore``), loaded with ``ctypes``. A library is rebuilt when its
 source, or a file under ``csrc/`` that the source includes, is newer. The
-kernels need the CUDA runtime alone: no tensor maps (the bulk copies are the
-one-dimensional ``cp.async.bulk``), so nothing links ``-lcuda``, and no
+kernels need the CUDA runtime alone: the bf16 route of ``hr_tail`` encodes its
+TMA tensor maps with ``cuTensorMapEncodeTiled``, which it looks up at run
+time with ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``; no
 CUTLASS header. A missing ``nvcc`` or a failed build raises: there is no
 fallback. This module is imported only by the kernel wrappers when they
 launch on a CUDA tensor, so the CPU path never touches it.

@@ -30,10 +30,12 @@ projection the activated operand and the weight are rounded to bf16 and
 multiplied in one pass with f32 accumulation; the head stays at three-pass
 precision. Two more routes carry it on the card, counted like the others:
 ``"bf16"`` (``wgmma`` m64n128k16 in bf16 at the tensor-core widths, weights
-from :func:`pack_hr_tail_bf16`) and ``"bf16_direct"`` (the direct kernels
-with the operands rounded to bf16 in registers, any widths). The head is a
-3xTF32 product on the first and an f32 FMA product on the second, both at
-least as exact as the TPU kernel's three-pass bf16 split.
+from :func:`pack_hr_tail_bf16`; each launch stores the next convolution's
+operand already activated and rounded, as bf16, and the next reads it by TMA;
+scratch :func:`bf16_scratch`) and ``"bf16_direct"`` (the direct kernels with
+the operands rounded to bf16 in registers, any widths). The head is a 3xTF32
+product on the first and an f32 FMA product on the second, both at least as
+exact as the TPU kernel's three-pass bf16 split.
 :func:`hr_tail_reference_bf16` is the plain version: what a CPU tensor runs
 in this mode and what the kernels are held against.
 """
@@ -64,7 +66,8 @@ TC_CM, TC_CH, TC_CK = 128, 16, 16
 
 #: hr_tail calls that launched the kernels since the last reset
 #: (ops.kernels.reset_launch_counts); each call is four kernel launches on
-#: the tensor-core route and six on the direct one
+#: the tensor-core route, five on the bf16 one (a pre-pass first) and six on
+#: the direct ones
 launches = 0
 #: the same calls by route
 route_launches = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_direct": 0}
@@ -285,6 +288,40 @@ def hr_tail_reference_3xtf32(
     return conv(y2, "head_w", "head_b").permute(0, 2, 3, 1)
 
 
+def bf16_scratch(b: int, h: int, w: int, ca: int, cb: int, cm: int) -> dict:
+    """The bf16 route's scratch, ``{name: (shape, dtype)}`` in launch order.
+
+    ``x_act`` = bf16(relu(f1.bn1(x))) and ``x_raw`` = bf16(x) of x = concat(sr,
+    dem), from the pre-pass; ``act_a`` holds f1.conv2's operand, then
+    f2.conv2's; ``act_b`` f2.conv1's; each written already activated by the
+    launch that computes it. ``y1`` (f32) is the last residual. The wrapper
+    takes them from one allocation (:func:`bf16_workspace`).
+    """
+    cin = ca + cb
+    return {
+        "x_act": ((b, h, w, cin), torch.bfloat16),
+        "x_raw": ((b, h, w, cin), torch.bfloat16),
+        "act_a": ((b, h, w, cm), torch.bfloat16),
+        "act_b": ((b, h, w, cm), torch.bfloat16),
+        "y1": ((b, h, w, cm), torch.float32),
+    }
+
+
+def bf16_workspace(scratch: dict) -> tuple[list[int], int]:
+    """Byte offsets of the :func:`bf16_scratch` buffers in one allocation, and its size.
+
+    Each buffer starts on a 256-byte boundary (TMA and the float4 loads need 16).
+    """
+    offsets, total = [], 0
+    for shape, dtype in scratch.values():
+        offsets.append(total)
+        nbytes = dtype.itemsize
+        for n in shape:
+            nbytes *= n
+        total += -(-nbytes // 256) * 256
+    return offsets, total
+
+
 def _check_weights(weights, cin: int, cm: int, ch: int, device) -> None:
     if len(weights) != len(WEIGHT_KEYS):
         raise ValueError(f"expected {len(WEIGHT_KEYS)} weights; got {len(weights)}")
@@ -316,7 +353,8 @@ def _lib():
         ("hr_tail_tc_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
         ("hr_tail_bf16_direct_launch",
          [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
-        ("hr_tail_bf16_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
+        ("hr_tail_bf16_launch",
+         [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]),
     ):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
@@ -443,7 +481,8 @@ def hr_tail_cuda(
                     f"{sr.device} ({packer}); got {t.dtype} {tuple(t.shape)} on {t.device}"
                 )
         # 16-byte bulk copies of the slabs; float4 loads of the inputs and the
-        # affines, float2 loads of the biases
+        # affines, float2 loads of the biases (the bf16 route's entry point
+        # checks its scratch, which TMA reads, again)
         aligned = [("sr", sr), ("dem", dem)]
         aligned += [("packed weight " + "+".join(k), t) for k, t in zip(TC_PACK_KEYS, tc_pack)]
         aligned += [(f"weight {k}", t) for k, t in zip(WEIGHT_KEYS, weights) if t.ndim == 1]
@@ -453,26 +492,34 @@ def hr_tail_cuda(
                     f"{name} must start on a 16-byte boundary for the {label} route"
                 )
 
-    buf_p = torch.empty((b, h, w, cm), dtype=torch.float32, device=sr.device)
-    buf_y = torch.empty_like(buf_p)
     out = torch.empty((b, h, w, ch), dtype=torch.float32, device=sr.device)
     lib = _lib()
     wptrs = ctypes.cast(_pointers(weights), ctypes.c_void_p)
     stream = _build.current_stream_ptr(sr.device)
     with torch.cuda.device(sr.device):
-        if on_tensor_cores:
-            fn = lib.hr_tail_tc_launch if route == "tensor" else lib.hr_tail_bf16_launch
-            rc = fn(
+        if route == "bf16":
+            offsets, nbytes = bf16_workspace(bf16_scratch(b, h, w, ca, cb, cm))
+            workspace = torch.empty(nbytes, dtype=torch.uint8, device=sr.device)
+            rc = lib.hr_tail_bf16_launch(
                 sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
                 ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
-                buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
+                *[workspace.data_ptr() + off for off in offsets], out.data_ptr(), stream,
             )
         else:
-            fn = lib.hr_tail_launch if route == "direct" else lib.hr_tail_bf16_direct_launch
-            rc = fn(
-                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
-                buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
-            )
+            buf_p = torch.empty((b, h, w, cm), dtype=torch.float32, device=sr.device)
+            buf_y = torch.empty_like(buf_p)
+            if route == "tensor":
+                rc = lib.hr_tail_tc_launch(
+                    sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
+                    ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
+                    buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
+                )
+            else:
+                fn = lib.hr_tail_launch if route == "direct" else lib.hr_tail_bf16_direct_launch
+                rc = fn(
+                    sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
+                    buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
+                )
     _build.check(rc, f"hr_tail ({route} route)")
     launches += 1
     route_launches[route] += 1

@@ -106,3 +106,48 @@ def test_hr_tail_bf16_route_rejects_the_other_routes_pack(cuda_device):
         )
     with pytest.raises(ValueError, match="mode must be"):
         ht.hr_tail(sr, dem, *wide, mode="fp8")
+
+
+# The scene's calls (8 tiles of 128x128, and the last call of one tile) and
+# two ragged sizes (H and W not multiples of the 2 x 64 block), so TMA's zero
+# fill is read at every image edge.
+@pytest.mark.parametrize(
+    "b,h,w", [(8, 128, 128), (1, 128, 128), (2, 70, 100), (8, 69, 100)],
+    ids=["eight_tiles", "one_tile", "ragged", "ragged_odd_rows"],
+)
+def test_hr_tail_bf16_route_at_the_scene_sizes(cuda_device, b, h, w):
+    ca, cb, cm, ch = 128, 32, 128, 16
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=7)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=8)
+    for key in ("f1_c1", "f1_c2", "f2_c1", "f2_c2"):
+        weights[ht.WEIGHT_KEYS.index(key)].fill_(0.5)  # relu(c) != 0 at the padding
+    want = ht.hr_tail_reference_bf16(sr, dem, *weights)
+    pack = ht.pack_hr_tail_bf16(weights)
+    _reset_routes()
+    got = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    again = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    torch.cuda.synchronize()
+    assert ht.launches == 2
+    assert ht.route_launches == _routes(bf16=2)
+    assert torch.equal(got, again)  # deterministic: no atomics, a fixed order of sums
+    # as in test_hr_tail_bf16_routes_match_the_plain_bf16_version: flipped
+    # bf16 roundings of single operands, at most 2e-3 of the output's range
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-3 * scale
+    for edge in (np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+        assert float((got[edge] - want[edge]).abs().max()) <= 2e-3 * scale
+
+
+def test_hr_tail_bf16_route_refuses_inputs_off_16_byte_alignment(cuda_device):
+    wide = _tail_weights(128, 32, 128, 16, cuda_device)
+    pack = ht.pack_hr_tail_bf16(wide)
+    dem = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    store = torch.zeros(8 * 8 * 128 + 1, device=cuda_device)
+    _reset_routes()
+    with pytest.raises(ValueError, match="sr must start on a 16-byte boundary for the bf16 route"):
+        ht.hr_tail(store[1:].view(1, 8, 8, 128), dem, *wide, tc_pack=pack, mode="bf16")
+    sr = torch.zeros(1, 8, 8, 128, device=cuda_device)
+    store = torch.zeros(8 * 8 * 32 + 2, device=cuda_device)
+    with pytest.raises(ValueError, match="dem must start on a 16-byte boundary"):
+        ht.hr_tail(sr, store[2:].view(1, 8, 8, 32), *wide, tc_pack=pack, mode="bf16")
+    assert ht.route_launches == _routes()

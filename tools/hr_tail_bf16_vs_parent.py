@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""K1's bf16 route against an earlier version of it, on one GPU, in one process.
+
+    git show <commit>:floodsr_tpu_torch/csrc/hr_tail.cu > _tree/parent_hr_tail.cu
+    python3 tools/hr_tail_bf16_vs_parent.py _tree/parent_hr_tail.cu
+
+The earlier source's ``hr_tail_bf16_launch`` takes one of two argument
+layouts, told apart by ``hr_tail_bf16_abi()``: a source without that symbol
+has the layout from before the route read its operands by TMA, ``(sr, dem, B,
+H, W, ca, cb, weights, packs, buf_p, buf_y, out, stream)`` with two f32 ``[B,
+H, W, 128]`` scratch buffers; one that returns 2 has the current layout. Any
+other source is refused before it is called. It is built with the same
+``nvcc`` flags into ``floodsr_tpu_torch/_build/parent/`` (git-ignored) and
+called through the same wrapper (``hr_tail_cuda(route="bf16")``: the same
+checks and one workspace allocation, of which the older layout takes its two
+buffers), so the two differ only in the library's entry point. Both routes
+get the flagship artifact's fuse/head weights and the same post-ReLU features
+at 8 tiles of 128x128 and at 1: their outputs are compared bit for bit, then
+timed with CUDA events in turns (earlier, current, current, earlier), then
+traced with ``torch.profiler`` for the device time of each launch. At one tile
+the host's time per call (``time.perf_counter`` around the wrapper's call,
+the launches enqueued, the card idle before each call) is taken with the two
+interleaved call by call, twice, each time in the other order. The other routes (3xTF32 tensor cores, direct, direct bf16) of both
+libraries are compared bit for bit at 8 tiles. One JSON line, with the card's
+name and power limit; the exit code is 1 when any comparison differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (time_ms, device_profile, bound, FLAGSHIP)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: hr_tail_bf16_launch's argument types by layout (hr_tail_bf16_abi(); 1 where
+#: the source exports no such symbol)
+BF16_ARGS = {
+    1: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    2: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+
+def build_parent(source: Path) -> tuple[ctypes.CDLL, int]:
+    from floodsr_tpu_torch.ops.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libhr_tail_parent.so"
+    subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
+        check=True, capture_output=True, text=True,
+    )
+    dll = ctypes.CDLL(str(lib))
+    if not hasattr(dll, "hr_tail_bf16_launch"):
+        raise SystemExit(f"{source} has no bf16 route (hr_tail_bf16_launch)")
+    abi = 1
+    if hasattr(dll, "hr_tail_bf16_abi"):
+        dll.hr_tail_bf16_abi.restype = ctypes.c_int
+        dll.hr_tail_bf16_abi.argtypes = []
+        abi = dll.hr_tail_bf16_abi()
+    if abi not in BF16_ARGS:
+        raise SystemExit(
+            f"{source}: hr_tail_bf16_launch argument layout {abi} is not one of {list(BF16_ARGS)}"
+        )
+    for name, argtypes in (
+        ("hr_tail_bf16_launch", BF16_ARGS[abi]),
+        ("hr_tail_tc_launch", [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        ("hr_tail_launch", [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+        ("hr_tail_bf16_direct_launch", [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    ):
+        fn = getattr(dll, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return dll, abi
+
+
+class EarlierLibrary:
+    """The wrapper's library with the earlier ``hr_tail_bf16_launch`` in its place."""
+
+    def __init__(self, parent, abi: int, cm: int):
+        self._parent, self._abi, self._cm = parent, abi, cm
+
+    def __getattr__(self, name):
+        # the routes whose entry points kept their signature: the earlier ones
+        return getattr(self._parent, name)
+
+    def hr_tail_bf16_launch(self, sr, dem, b, h, w, ca, cb, weights, packs,
+                            x_act, x_raw, act_a, act_b, y1, out, stream):
+        if self._abi == 2:
+            return self._parent.hr_tail_bf16_launch(
+                sr, dem, b, h, w, ca, cb, weights, packs, x_act, x_raw, act_a, act_b, y1, out,
+                stream,
+            )
+        # layout 1: the workspace starts at x_act and holds more than two f32 [b,h,w,cm]
+        buf = b * h * w * self._cm * 4
+        return self._parent.hr_tail_bf16_launch(
+            sr, dem, b, h, w, ca, cb, weights, packs, x_act, x_act + buf, out, stream
+        )
+
+
+def host_us(torch, fns, calls: int) -> list:
+    """Median host microseconds of one call of each of ``fns``, interleaved
+    call by call (so a drift of the host's speed reaches all alike), with the
+    card idle before each call."""
+    times = [[] for _ in fns]
+    for _ in range(calls):
+        for fn, acc in zip(fns, times):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            acc.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return [statistics.median(t) * 1e6 for t in times]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("parent_source", type=Path, help="the earlier csrc/hr_tail.cu")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--host-calls", type=int, default=200)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("hr_tail_bf16_vs_parent: CUDA is not available", file=sys.stderr)
+        return 2
+    from floodsr_tpu_torch.engine import EngineTorch
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    parent, abi = build_parent(args.parent_source)
+    engine = EngineTorch(chip_smoke.FLAGSHIP, device="cuda")
+    model, cfg = engine.model, engine.config
+    weights = ht.pack_hr_tail_weights(model.fuse[0], model.fuse[1], model.head, bn_eps=cfg.bn_eps)
+    pack = ht.pack_hr_tail_bf16(weights)
+    rng = np.random.default_rng(args.seed)
+    hw, ca, cb = cfg.hr_tile // cfg.hr_s2d, cfg.base_filters * cfg.hr_s2d, cfg.fuse_filters
+    sr8 = torch.from_numpy(np.abs(rng.normal(0, 1, (8, hw, hw, ca))).astype(np.float32)).cuda()
+    dem8 = torch.from_numpy(np.abs(rng.normal(0, 1, (8, hw, hw, cb))).astype(np.float32)).cuda()
+    lib = ht._lib
+    earlier_lib = EarlierLibrary(parent, abi, ht.TC_CM)
+
+    def earlier(sr, dem):
+        ht._lib = lambda: earlier_lib
+        try:
+            return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16")
+        finally:
+            ht._lib = lib
+
+    def earlier_route(sr, dem, route, pack_for):
+        ht._lib = lambda: earlier_lib
+        try:
+            return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack_for, route=route)
+        finally:
+            ht._lib = lib
+
+    def current(sr, dem):
+        return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16")
+
+    macs = 8 * hw * hw * (9 * (ca + cb) * ht.TC_CM + 3 * 9 * ht.TC_CM ** 2 + (ca + cb) * ht.TC_CM
+                          + ht.TC_CM * ht.TC_CH)
+    report = {"device": torch.cuda.get_device_name(0), "smi": smi, "parent_abi": abi}
+    for tiles in (8, 1):
+        sr, dem = sr8[:tiles], dem8[:tiles]
+        a, c = earlier(sr, dem), current(sr, dem)
+        torch.cuda.synchronize()
+        turns = [
+            chip_smoke.time_ms(torch, lambda: earlier(sr, dem), reps=args.reps),
+            chip_smoke.time_ms(torch, lambda: current(sr, dem), reps=args.reps),
+            chip_smoke.time_ms(torch, lambda: current(sr, dem), reps=args.reps),
+            chip_smoke.time_ms(torch, lambda: earlier(sr, dem), reps=args.reps),
+        ]
+        host = {}
+        if tiles == 1:
+            first = host_us(torch, [lambda: earlier(sr, dem), lambda: current(sr, dem)], args.host_calls)
+            second = host_us(torch, [lambda: current(sr, dem), lambda: earlier(sr, dem)], args.host_calls)
+            host = {
+                "host_us_earlier": [first[0], second[1]],
+                "host_us_current": [first[1], second[0]],
+            }
+        traced = {}
+        for name, fn in (("earlier", earlier), ("current", current)):
+            prof = chip_smoke.device_profile(torch, lambda: [fn(sr, dem) for _ in range(5)])
+            # layout 1's route ran the 3xTF32 route's kernel with bf16 operands
+            tma_route = name == "current" or abi == 2
+            key = "hr_tail_bf16_ms_by_launch" if tma_route else "hr_tail_tc_ms_by_launch"
+            traced[name] = {k: v / 5 for k, v in prof[key].items()}
+        bound_ms = chip_smoke.bound(
+            nbytes=0, nops=2 * macs * tiles / 8, ops_per_s=chip_smoke.PEAK_BF16_PER_S
+        )[0]
+        report[f"tiles_{tiles}"] = {
+            "bit_equal": bool(torch.equal(a, c)),
+            "max_abs_diff": float((a - c).abs().max()),
+            "ms_earlier": [turns[0], turns[3]],
+            "ms_current": [turns[1], turns[2]],
+            "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
+            "ms_by_launch": traced,
+            "bound_ms": bound_ms,
+            **host,
+        }
+    tc_pack = ht.pack_hr_tail_tc(weights)
+    others = {}
+    for route in ("tensor", "direct", "bf16_direct"):
+        pack_for = tc_pack if route == "tensor" else None
+        a = earlier_route(sr8, dem8, route, pack_for)
+        c = ht.hr_tail_cuda(sr8, dem8, *weights, tc_pack=pack_for, route=route)
+        torch.cuda.synchronize()
+        others[route] = bool(torch.equal(a, c))
+    report["other_routes_bit_equal_8_tiles"] = others
+    engine.close()
+    print(json.dumps({"hr_tail_bf16_vs_parent": report}))
+    same = all(report[f"tiles_{t}"]["bit_equal"] for t in (8, 1)) and all(others.values())
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
