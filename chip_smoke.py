@@ -68,6 +68,19 @@ Phases (any failure raises and exits non-zero; none is caught):
 14. cli — child processes ``python3 -m floodsr_tpu_torch.cli doctor`` and
     ``... cli tohr --in a.tif b.tif --dem dem.tif --out <dir>`` at 1024²,
     exit code 0 each, the files equal to ``tohr``'s;
+    mesh — the multi-GPU paths on the one card: the 4096² flagship scene
+    through ``tohr`` banded over ``make_mesh(devices=[cuda:0] * 4)`` and over
+    ``parse_mesh_spec("auto")``, and replicated over ``[cuda:0] * 4`` (each
+    raster within one uint16 step of the plain ``tohr`` raster; K1 and K2
+    counted by the wrappers and seen by the profiler; seconds, ``exec_s``, K1
+    and K2 device ms, peak MiB), ``run_scene`` with the float32 transfer
+    within 1e-4 m of the plain scene with the per-tile stats equal in grid
+    order, a 1024 × 8192 scene on the column path, the 4096² valley's
+    penalized-fill inputs through ``mcp_fill_sharded`` over 4 bands equal to
+    ``mcp_fill`` bit for bit (K3's launches and seconds for both), and
+    ``tohr --mesh auto --scene-mode banded`` as a child process at 1024²
+    against the plain CLI raster; a real 2-GPU mesh where the machine has
+    two GPUs. One ``{"mesh": ...}`` JSON line;
 15. policies — the 4096² flagship scene under ``compute_dtype="bfloat16"``
     (16 K1 calls on the bf16 route, none other) and ``"mixed"`` (16 on the
     3xTF32 route): end to end, ``exec_s`` and the RMSE in metres against the
@@ -97,7 +110,8 @@ Phases (any failure raises and exits non-zero; none is caught):
     training checkpoint saved and restored bit for bit; the exported
     inference artifact through ``tohr`` on ``synth_flagship`` (K1 and K2
     launched). One JSON line of the phase's numbers;
-19. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval``), the
+19. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval``; each
+    kernel with ``launches_mesh``), the
     card's name and power limit, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
@@ -106,6 +120,7 @@ It exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -750,6 +765,7 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
     wall_s = time.perf_counter() - t0
     spans = []
     by_name = {}
+    n_by_name = {}
     # (conv_bf16_ matches the bf16 route's three body launches and its head's)
     conv_events = {"conv_tc_kernel": [], "conv_bf16_": []}
     for evt in prof.events():
@@ -760,6 +776,7 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
             continue
         spans.append((t_start, t_end))
         by_name[evt.name] = by_name.get(evt.name, 0.0) + (t_end - t_start)
+        n_by_name[evt.name] = n_by_name.get(evt.name, 0) + 1
         for kname, events in conv_events.items():
             if kname in evt.name:
                 events.append((t_start, t_end - t_start))
@@ -776,6 +793,12 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
     busy_us += cur_end - cur_start
     kernel_ms = {
         kname: sum(us for name, us in by_name.items() if any(f in name for f in frags)) / 1e3
+        for kname, frags in KERNEL_NAMES.items()
+    }
+    # device launches by kernel, as the trace records them (a K1 call is
+    # four to six launches, a K2 or K3 call one)
+    kernel_events = {
+        kname: sum(n for name, n in n_by_name.items() if any(f in name for f in frags))
         for kname, frags in KERNEL_NAMES.items()
     }
     for kname, count in launch_counts().items():
@@ -821,6 +844,7 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_event_sum_s": sum(by_name.values()) / 1e6,
         "kernel_device_ms": kernel_ms,
+        "kernel_events": kernel_events,
         "hr_tail_tc_calls": len(conv_events["conv_tc_kernel"]) // len(HR_TAIL_TC_LAUNCHES),
         "hr_tail_tc_ms_by_launch": by_launch["conv_tc_kernel"],
         "hr_tail_bf16_calls": len(conv_events["conv_bf16_"]) // len(HR_TAIL_TC_LAUNCHES),
@@ -1683,6 +1707,276 @@ def traced(torch, what: str, e2e_s: float, **kw) -> None:
     log(f"[profile] {what} {json.dumps(prof)}")
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU inference: banded and replicated scenes, the banded fill, --mesh
+# ---------------------------------------------------------------------------
+
+MESH_BANDS = 4  # bands (or shards) of the virtual mesh on the one card
+MESH_WIDE = (1024, 8192)  # a scene that takes the column path over 4 bands
+# Tiles a batch in every path of the equal-width holds: the 4096² scene's
+# 121 tiles and its four bands' 33/33/22/33 all split into batches of 11, the
+# wide scene's 63 tiles and its bands' 18/15/15/15 into batches of 3.
+MESH_WIDTH = 11
+MESH_WIDE_WIDTH = 3
+
+
+@contextlib.contextmanager
+def engine_batch_width(scene_chunk: int, trunk_chunk: int):
+    """Every ``EngineTorch`` made inside takes these scene chunk widths by
+    default (the worker passes neither)."""
+    from floodsr_tpu_torch.engine import EngineTorch
+
+    defaults = EngineTorch.__init__.__kwdefaults__
+    saved = dict(defaults)
+    defaults.update(scene_chunk=scene_chunk, scene_trunk_chunk=trunk_chunk)
+    try:
+        yield
+    finally:
+        defaults.clear()
+        defaults.update(saved)
+
+
+def held_scene(what: str, got, want, atol: float) -> float:
+    """``run_scene`` outputs and per-tile stats of a meshed engine against the
+    plain one's: the scene within ``atol``, the stats the same bits in grid
+    order. Returns the max |diff|."""
+    (out, stats), (out0, stats0) = got, want
+    if out.shape != out0.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{what}: shape {out.shape} (want {out0.shape}) or values not finite")
+    diff = float(np.abs(out - out0).max())
+    if not diff <= atol:
+        raise AssertionError(f"{what}: max |diff| {diff} m against the plain scene, over {atol}")
+    for k in stats0:
+        if not np.array_equal(stats[k], stats0[k]):
+            raise AssertionError(f"{what}: per-tile {k} differ from the plain scene's in grid order")
+    return diff
+
+
+def phase_mesh(torch, seed: int, size: int, tmp: Path, card: str) -> dict:
+    """The multi-GPU paths on the card: the flagship scene banded over
+    ``[cuda:0] * 4`` and over ``parse_mesh_spec("auto")``, replicated over
+    ``[cuda:0] * 4``, a wide scene on the column path, the banded CostGrow
+    fill, and ``tohr --mesh auto --scene-mode banded`` as a child process.
+
+    cuDNN picks a convolution algorithm by batch size, and this randomly
+    initialised artifact (features near 1e4, an output that saturates)
+    carries the change of algorithm to the output: the plain path run at
+    another batch width moves its own raster by up to 1.7e-2 m. So the
+    numbers are read at the default widths (what a user runs), and the
+    holds run every path at one batch width (``MESH_WIDTH``), where a tile's
+    prediction is the same bits in every path and only the sums at a seam
+    differ."""
+    from floodsr_tpu_torch.engine import EngineTorch
+    from floodsr_tpu_torch.io import read_raster
+    from floodsr_tpu_torch.ops import costgrow
+    from floodsr_tpu_torch.ops.costgrow_banded import mcp_fill_sharded
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from floodsr_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
+    from floodsr_tpu_torch.tohr import tohr
+
+    dev = torch.device("cuda", 0)
+    meshes = {
+        "banded x4": (make_mesh(devices=[dev] * MESH_BANDS), "banded"),
+        "banded auto": (parse_mesh_spec("auto"), "banded"),
+        "replicated x4": (make_mesh(devices=[dev] * MESH_BANDS), "replicated"),
+    }
+    if torch.cuda.device_count() >= 2:
+        meshes["banded 2 GPUs"] = (make_mesh(2), "banded")
+        meshes["replicated 2 GPUs"] = (make_mesh(2), "replicated")
+    else:
+        log("[mesh] one GPU on this machine: the real 2-GPU mesh is not run (device count 1)")
+    # one uint16 code, plus the f32 rounding of two dequantized values near 5 m
+    step = 5.0 / 65535 + 1e-6
+    report = {"card": card, "scenes": {}}
+
+    # 1. the flagship scene through tohr at the default widths: times, launches
+    dem_fp, depth_fp = scene_inputs(tmp, seed, size, tag="_mesh")
+    kw = dict(
+        model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, depth_lr_fp=depth_fp,
+        dem_hr_fp=dem_fp, device="cuda",
+    )
+    torch.cuda.reset_peak_memory_stats()
+    plain = timed_tohr(torch, output_fp=tmp / "mesh_plain.tif", **kw)
+    report["scenes"]["plain"] = {
+        "e2e_s": plain["e2e_s"], "exec_s": plain["timings"]["exec_s"],
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+    }
+    launches = {}
+    for what, (mesh, mode) in meshes.items():
+        opts = {"engine_options": {"mesh": mesh, "scene_mode": mode}}
+        out_fp = tmp / f"mesh_{what.replace(' ', '_')}.tif"
+        torch.cuda.reset_peak_memory_stats()
+        run = timed_tohr(torch, output_fp=out_fp, **kw, **opts)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for name in ("tile_stats", "hr_tail"):
+            if not run["counts"][name] > 0:
+                raise AssertionError(f"[mesh] {what}: {name} never launched: {run['counts']}")
+        prof = device_profile(torch, lambda: tohr(output_fp=out_fp, **kw, **opts))
+        for name in ("tile_stats", "hr_tail"):
+            if not prof["kernel_events"][name] > 0:
+                raise AssertionError(f"[mesh] {what}: the profiler saw no {name} launch: {prof}")
+        diff = np.abs(run["pred"] - plain["pred"])
+        launches[what] = run["counts"]
+        report["scenes"][what] = {
+            "e2e_s": run["e2e_s"], "exec_s": run["timings"]["exec_s"], "peak_mib": peak,
+            "launches": run["counts"], "profiler_launches": prof["kernel_events"],
+            "k1_device_ms": prof["kernel_device_ms"]["hr_tail"],
+            "k2_device_ms": prof["kernel_device_ms"]["tile_stats"],
+            "device_busy_s": prof["device_busy_s"],
+            # against the plain raster at the default widths: not a hold (see above)
+            "default_widths_max_abs_m": float(diff.max()),
+            "default_widths_share_over_one_step": float((diff > step).mean()),
+        }
+        log(f"[mesh] {what}: {json.dumps(report['scenes'][what])} ({card})")
+
+    # 2. the holds at one batch width: tohr rasters within one uint16 step,
+    # run_scene with the float32 transfer within 1e-4 m, stats in grid order
+    def width(mode, dp):
+        chunk = MESH_WIDTH * (dp if mode == "replicated" else 1)
+        return engine_batch_width(chunk, MESH_WIDTH)
+
+    with width("plain", 1):
+        tohr(output_fp=tmp / "mesh_plain_w.tif", **kw)
+    want_raster = read_raster(tmp / "mesh_plain_w.tif")[0]
+    for what, (mesh, mode) in meshes.items():
+        dp = mesh.shape["dp"]
+        with width(mode, dp):
+            tohr(
+                output_fp=tmp / "mesh_w.tif", **kw,
+                engine_options={"mesh": mesh, "scene_mode": mode, "max_batch": MESH_WIDTH},
+            )
+        diff = float(np.abs(read_raster(tmp / "mesh_w.tif")[0] - want_raster).max())
+        if not diff <= step:
+            raise AssertionError(f"[mesh] {what}: tohr raster {diff} m from the plain one (step {step})")
+        report["scenes"][what]["tohr_max_abs_m"] = diff
+
+    depth = read_raster(depth_fp)[0]
+    dem = read_raster(dem_fp)[0]
+
+    def run_scene(mesh, mode, d, m, w):
+        dp = 1 if mesh is None else mesh.shape["dp"]
+        eng = EngineTorch(
+            FLAGSHIP, mesh=mesh, scene_mode=mode, output_transfer="float32", max_batch=w,
+            scene_chunk=w * (dp if mode == "replicated" else 1), scene_trunk_chunk=w,
+        )
+        cfg = eng.config
+        overlap = cfg.lr_tile // 4 * cfg.scale  # the worker's feather default
+        stride = cfg.hr_tile - overlap
+        out = eng.run_scene(
+            d, m, crop_shape=m.shape, stride_hr=stride, overlap_hr=overlap, max_depth=5.0,
+            dem_pct_clip=95.0,
+        )
+        geometry = None
+        if mode == "banded":
+            _, bucket, _, _, transposed = eng.banded_scene_executor(
+                m.shape, stride_hr=stride, overlap_hr=overlap, max_depth=5.0, dem_pct_clip=95.0,
+            )
+            geometry = (bucket, transposed)
+        eng.close()
+        return out, geometry
+
+    want, _ = run_scene(None, "replicated", depth, dem, MESH_WIDTH)
+    for what, (mesh, mode) in meshes.items():
+        got, _ = run_scene(mesh, mode, depth, dem, MESH_WIDTH)
+        report["scenes"][what]["run_scene_f32_max_abs_m"] = held_scene(what, got, want, 1e-4)
+
+    # 3. column banding: a wide scene over 4 bands
+    rng = np.random.default_rng(seed + 300)
+    wide_dem = (300.0 + np.cumsum(rng.normal(0.0, 0.3, MESH_WIDE), axis=1)).astype(np.float32)
+    wide_depth = np.clip(
+        rng.gamma(1.5, 0.6, (MESH_WIDE[0] // 16, MESH_WIDE[1] // 16)) - 0.4, 0.0, 5.0
+    ).astype(np.float32)
+    want, _ = run_scene(None, "replicated", wide_depth, wide_dem, MESH_WIDE_WIDTH)
+    got, (bucket, transposed) = run_scene(
+        meshes["banded x4"][0], "banded", wide_depth, wide_dem, MESH_WIDE_WIDTH
+    )
+    if not transposed:
+        raise AssertionError(f"[mesh] the {MESH_WIDE} scene did not take the column path: {bucket}")
+    report["wide"] = {
+        "shape": list(MESH_WIDE), "bucket": list(bucket),
+        "max_abs_m": held_scene("column banding", got, want, 1e-4),
+    }
+
+    # 4. the banded fill on the 4096² valley scene's penalized-fill inputs
+    scene = valley_scene(tmp, seed, size)
+    params = costgrow_params(tmp)
+    captured = []
+    real_fill = costgrow.mcp_fill
+
+    def capture(*args, **kwargs):
+        if kwargs.get("target_mask") is not None:
+            captured.append(tuple(a.clone() for a in args[:4]))
+        return real_fill(*args, **kwargs)
+
+    costgrow.mcp_fill = capture
+    try:
+        tohr(
+            model_version="CostGrow", model_fp=params["CostGrow"], depth_lr_fp=scene["wse"],
+            dem_hr_fp=scene["dem"], output_fp=tmp / "mesh_costgrow.tif", device="cuda",
+        )
+    finally:
+        costgrow.mcp_fill = real_fill
+    if len(captured) != 1:
+        raise AssertionError(f"[mesh] captured {len(captured)} penalized fills, not 1")
+    fill_args = captured[0]
+    fills = {}
+    for what, fill in (
+        ("mcp_fill", lambda st: real_fill(*fill_args, stats=st)),
+        ("mcp_fill_sharded x4", lambda st: mcp_fill_sharded(*fill_args, meshes["banded x4"][0], stats=st)),
+    ):
+        stats = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        filled, dist = fill(stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k3 = launch_counts()["relax_step"]
+        if isinstance(filled, torch.Tensor):
+            filled, dist = filled.cpu().numpy(), dist.cpu().numpy()
+        fills[what] = (filled, dist)
+        report[what] = {"seconds": seconds, "k3_launches": k3, **stats}
+        if not k3 > 0:
+            raise AssertionError(f"[mesh] {what}: relax_step never launched")
+    (f0, d0), (f1, d1) = fills.values()
+    if not (np.array_equal(d0, d1) and np.array_equal(f0, f1, equal_nan=True)):
+        raise AssertionError(
+            f"[mesh] the banded fill differs from mcp_fill: dist max |diff| "
+            f"{np.nanmax(np.abs(d0 - d1))}, {int((f0 != f1).sum())} fill cells"
+        )
+    launches["mcp_fill_sharded x4"] = {"relax_step": report["mcp_fill_sharded x4"]["k3_launches"]}
+    log(
+        f"[mesh] banded fill on the {size}² valley's penalized fill: bit-equal to mcp_fill; "
+        f"{json.dumps({k: report[k] for k in ('mcp_fill', 'mcp_fill_sharded x4')})} ({card})"
+    )
+
+    # 5. the CLI: tohr --mesh auto --scene-mode banded, equal to the library's
+    # tohr with the same mesh
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])
+    ))
+    cli_dem, cli_depth = scene_inputs(tmp, seed + 202, 1024, tag="_cli_mesh")
+    cli_fp = tmp / "cli_mesh.tif"
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "floodsr_tpu_torch.cli", "tohr", "--model-path", str(FLAGSHIP),
+         "--in", str(cli_depth), "--dem", str(cli_dem), "--out", str(cli_fp),
+         "--mesh", "auto", "--scene-mode", "banded"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    if done.returncode != 0:
+        raise AssertionError(f"cli tohr --mesh auto: exit code {done.returncode}\n{done.stderr}")
+    report["cli_s"] = time.perf_counter() - t0
+    tohr(
+        model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP, depth_lr_fp=cli_depth,
+        dem_hr_fp=cli_dem, output_fp=tmp / "lib_mesh.tif", device="cuda",
+        engine_options={"mesh": meshes["banded auto"][0], "scene_mode": "banded"},
+    )
+    same_raster(tmp / "lib_mesh.tif", cli_fp, "cli tohr --mesh auto --scene-mode banded")
+    print(json.dumps({"mesh": report}), flush=True)
+    return {"launches": launches}
+
+
 def phase_policies(torch, seed: int, size: int, tmp: Path, with_profile: bool = False) -> dict:
     """The flagship scene under ``bfloat16`` and ``mixed`` against ``float32``."""
     dem_fp, depth_fp = scene_inputs(tmp, seed, size, tag="_policy")
@@ -2259,6 +2553,7 @@ def main(argv=None) -> int:
         stream = phase_stream(torch, args.seed, SCENE_SIZE, tmp)
         serve = phase_serve(torch, args.seed, SCENE_SIZE, tmp, stream)
         phase_cli(torch, args.seed, tmp)
+        mesh = phase_mesh(torch, args.seed, SCENE_SIZE, tmp, device["smi"])
         policies = phase_policies(torch, args.seed, SCENE_SIZE, tmp, args.profile)
         phase_finish(torch, args.seed, SCENE_SIZE, tmp)
         onnx = phase_onnx(torch, args.seed, SCENE_SIZE, tmp, args.profile)
@@ -2273,6 +2568,14 @@ def main(argv=None) -> int:
         if k["name"] != "relax_step" and not (k["launches_stream"] > 0 and k["launches_serve"] > 0):
             raise AssertionError(f"{k['name']} was not launched on a serving path: {k}")
         k["launches_onnx"] = onnx["launches"][k["name"]]
+        # the mesh paths: four bands of the flagship scene on the card (K1,
+        # K2), the banded fill (K3)
+        k["launches_mesh"] = (
+            mesh["launches"]["mcp_fill_sharded x4"] if k["name"] == "relax_step"
+            else mesh["launches"]["banded x4"]
+        )[k["name"]]
+        if not k["launches_mesh"] > 0:
+            raise AssertionError(f"{k['name']} was not launched on a mesh path: {k}")
     if not kernels[0]["launches_onnx"] > 0:
         raise AssertionError(f"tile_stats was not launched on the ONNX path: {kernels[0]}")
     # K1's bf16 route: its launches are those of the bfloat16 scene.

@@ -8,9 +8,10 @@ lifecycle surface the reference ADR-0012 spec'd but never built) and
 ``serve``. ``doctor`` reports the PyTorch/CUDA runtime in the same
 machine-parseable ``key=value`` style; it, ``models`` and ``cache`` touch no
 device. ``tohr`` and ``serve`` run on the GPU (``--device cuda``, the default,
-which fails without CUDA) or on the CPU when asked (``--device cpu``). The
-JAX package's mesh options (``--mesh``, ``--scene-mode``) have no counterpart
-yet, so the parser refuses them.
+which fails without CUDA) or on the CPU when asked (``--device cpu``), and
+take the JAX package's mesh options: ``--mesh SPEC`` spreads the work over
+the visible GPUs (one CPU with ``--device cpu``), ``--scene-mode`` picks the
+replicated or banded scene.
 """
 
 from __future__ import annotations
@@ -150,6 +151,8 @@ _MACHINE_SCHEMA: dict[str, tuple[str, bool]] = {
     "input_kind": ("--input-kind", False),
     "buildings": ("--buildings", False),
     "fetch_buildings": ("--fetch-buildings", True),
+    "mesh": ("--mesh", False),
+    "scene_mode": ("--scene-mode", False),
     "output_compress": ("--output-compress", False),
     "device": ("--device", False),
 }
@@ -286,6 +289,7 @@ def _cmd_tohr(args: argparse.Namespace) -> int:
             "max_batch": config.max_batch,
             "output_transfer": config.output_transfer,
             "input_transfer": config.input_transfer,
+            **_resolve_mesh_options(args),
         },
         device=args.device,
     )
@@ -423,7 +427,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     config = load_config()
 
     # Validate the cheap inputs BEFORE model resolution: a typo'd --warmup
-    # must not abort only after a large weights download.
+    # or --mesh must not abort only after a large weights download.
     warmup_shapes = []
     for spec in args.warmup or []:
         try:
@@ -433,6 +437,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                 f"--warmup expects HxW (e.g. 3840x3840), got '{spec}'"
             ) from None
         warmup_shapes.append((h, w))
+    mesh_options = _resolve_mesh_options(args)
     if args.max_pending < 1:
         raise ValueError(f"--max-pending must be >= 1, got {args.max_pending}")
     # Flag > env: tokens on command lines leak via process listings, so the
@@ -458,6 +463,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
             "max_batch": config.max_batch,
             "output_transfer": config.output_transfer,
             "input_transfer": config.input_transfer,
+            **mesh_options,
         },
         run_defaults={
             "window_method": config.window_method,
@@ -655,6 +661,7 @@ def _build_tohr_parser(subparsers) -> None:
             "the LR grid) before super-resolution."
         ),
     )
+    _add_mesh_opts(p)
     _add_device_opt(p)
 
 
@@ -666,6 +673,40 @@ def _add_device_opt(p: argparse.ArgumentParser) -> None:
             "absent) or the CPU."
         ),
     )
+
+
+def _add_mesh_opts(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help=(
+            "Shard inference over a device mesh: 'auto' (all GPUs, data "
+            "parallel), a device count, or axis sizes like 'dp=4,tp=2'. "
+            "Default: single device."
+        ),
+    )
+    p.add_argument(
+        "--scene-mode", choices=("replicated", "banded"), default=None,
+        help=(
+            "Sharded-scene formulation (with --mesh): 'replicated' gathers "
+            "tiles and updates a replicated scene (fastest for scenes that "
+            "fit one device's memory); 'banded' row-shards the scene and its "
+            "accumulators across dp (scenes beyond one device's memory)."
+        ),
+    )
+
+
+def _resolve_mesh_options(args: argparse.Namespace) -> dict:
+    """--mesh/--scene-mode -> engine_options entries (empty when unset)."""
+    options: dict = {}
+    if getattr(args, "mesh", None):
+        from floodsr_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        options["mesh"] = parse_mesh_spec(args.mesh, device=args.device)
+    if getattr(args, "scene_mode", None):
+        if "mesh" not in options:
+            raise ValueError("--scene-mode requires --mesh")
+        options["scene_mode"] = args.scene_mode
+    return options
 
 
 def _build_serve_parser(subparsers) -> None:
@@ -722,6 +763,7 @@ def _build_serve_parser(subparsers) -> None:
             "after symlink resolution; outside paths are rejected with 400."
         ),
     )
+    _add_mesh_opts(p)
     _add_device_opt(p)
     _add_fetch_opts(p)
 

@@ -25,6 +25,16 @@ Tiles are added to the mosaic in the same order as the JAX package's
 executor pads scenes and tile counts to shape buckets only to avoid XLA
 recompiles; eager PyTorch has nothing to recompile, so the port runs the
 content grid as it is.
+
+With a ``mesh`` (ADR-0006's replicated formulation, JAX ``scene.py``
+:256-258 and :470-482) the executor is single-phase, its chunk rounded up to
+a multiple of ``dp`` (:func:`resolve_chunk`), and each chunk is split over the
+``dp`` devices: each runs gather → normalize (``tile_stats``) → forward
+(trunk and ``hr_tail``) → invert on its sub-chunk, with its own copy of the
+padded scene and of the model. The predictions move to the accumulator's
+device (the scene's, the mesh's first) and are added in the unsharded chunk
+order. The JAX package keeps a replicated accumulator on every device; one
+on the first device gives the same numbers, and the finish reads one device.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from floodsr_tpu_torch.nn.resunet import ResUNet
+from floodsr_tpu_torch.parallel.mesh import to_device
 from floodsr_tpu_torch.ops.normalize import (
     dem_tile_stats,
     invert_depth_log1p,
@@ -57,6 +68,35 @@ def gather_tiles(
     rows = y0[:, None] + ar[None, :]
     cols = x0[:, None] + ar[None, :]
     return scene[rows[:, :, None], cols[:, None, :]]
+
+
+def predict_tiles(
+    forward, depth_pad, dem_pad, y0, x0, cfg, max_depth: float, dem_pct_clip: float,
+    transposed: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One single-phase batch: gather → log1p-scale the depth → per-tile DEM
+    stats (the ``tile_stats`` kernel) → normalize → ``forward`` → invert.
+
+    Returns the ``[n, tile, tile]`` meter-domain predictions and the ``[n, 3]``
+    stats (``p_clip, dem_min, dem_max``). ``transposed``: the scenes are
+    transposed views of the model's; each tile is swapped back for the
+    forward (convolutions are not transpose-equivariant) and its prediction
+    swapped again.
+    """
+    tile, lr_tile, scale = cfg.hr_tile, cfg.lr_tile, cfg.scale
+    depth_tiles = gather_tiles(depth_pad, y0 // scale, x0 // scale, lr_tile)
+    dem_tiles = gather_tiles(dem_pad, y0, x0, tile)
+    if transposed:
+        depth_tiles = depth_tiles.transpose(-2, -1).contiguous()
+        dem_tiles = dem_tiles.transpose(-2, -1).contiguous()
+    depth_norm = scale_depth_log1p(depth_tiles, max_depth)
+    p_clip, dem_min, dem_max = dem_tile_stats(dem_tiles, dem_pct_clip)
+    dem_norm = normalize_dem_with_stats(dem_tiles, p_clip, dem_min, dem_max)
+    pred_norm = forward(depth_norm[..., None], dem_norm[..., None])
+    pred_m = invert_depth_log1p(pred_norm[..., 0], max_depth)
+    if transposed:
+        pred_m = pred_m.transpose(-2, -1)
+    return pred_m, torch.stack([p_clip, dem_min, dem_max], dim=-1)
 
 
 def axis_feather_weights(
@@ -124,6 +164,16 @@ def validate_hard_grid(grid: dict[str, np.ndarray | int], tile: int) -> None:
             )
 
 
+def resolve_chunk(chunk: int, mesh=None, batch_axis: str = "dp") -> int:
+    """The executor's actual per-step tile chunk (mesh-divisible when sharded)."""
+    chunk = int(chunk)
+    if mesh is not None:
+        dp = int(mesh.shape[batch_axis])
+        chunk = max(chunk, dp)
+        chunk = -(-chunk // dp) * dp
+    return chunk
+
+
 def pack_scene_indices(
     grid: dict[str, np.ndarray | int], capacity: int, chunk: int
 ) -> dict[str, np.ndarray]:
@@ -177,6 +227,10 @@ class SceneExecutor:
     then single-phase, one whole forward per ``chunk`` of tiles, and ``model``
     may be ``None`` (``cfg`` must then name the tile geometry).
 
+    With ``mesh``: single-phase and sharded over ``mesh[batch_axis]``;
+    ``replicas`` maps each device of that axis to its forward
+    ``(depth_nhwc, dem_nhwc) -> pred_nhwc`` (the model's copy there).
+
     ``executor(depth_pad, dem_pad, idx)`` takes the LR depth and HR DEM
     zero-padded to ``scene_shape`` (HR) / ``scene_shape // scale`` (LR), on
     the model's device, plus :func:`scene_indices` of the content grid, and
@@ -199,8 +253,18 @@ class SceneExecutor:
         cfg=None,
         precision=None,
         forward_fn=None,
+        mesh=None,
+        batch_axis: str = "dp",
+        replicas: "dict | None" = None,
     ):
         assert transfer_dtype in {"uint16", "float32"}, transfer_dtype
+        if mesh is not None:
+            self.shard_devices = mesh.axis_devices(batch_axis)
+            assert replicas is not None and set(self.shard_devices) <= set(replicas), (
+                "a sharded scene executor needs a forward on every device of the mesh"
+            )
+        self.mesh = mesh
+        self.replicas = replicas
         assert model is not None or (forward_fn is not None and cfg is not None), (
             "a scene executor needs a model to split, or forward_fn and cfg"
         )
@@ -212,7 +276,7 @@ class SceneExecutor:
         self.overlap_hr = int(overlap_hr)
         self.max_depth = float(max_depth)
         self.dem_pct_clip = float(dem_pct_clip)
-        self.chunk = max(1, int(chunk))
+        self.chunk = max(1, resolve_chunk(chunk, mesh, batch_axis))
         self.trunk_chunk = max(1, int(trunk_chunk))
         self.transfer_dtype = transfer_dtype
         self.mosaic_mode = select_mosaic_mode(self.overlap_hr)
@@ -321,22 +385,19 @@ class SceneExecutor:
         chunk_idx = self._chunk_indices(idx, dev)
         stats = torch.empty((n, 3), dtype=torch.float32, device=dev)
 
+        if self.mesh is not None:
+            return self._sharded(depth_pad, dem_pad, y0, x0, chunk_idx, stats)
+
         if self.forward_fn is not None:
             # Single phase — one whole forward per chunk.
             carry = self._mosaic_init(dev)
             for s in range(0, n, self.chunk):
                 e = min(n, s + self.chunk)
-                depth_tiles = gather_tiles(
-                    depth_pad, y0[s:e] // scale, x0[s:e] // scale, lr_tile
+                pred_m, stats[s:e] = predict_tiles(
+                    self.forward_fn, depth_pad, dem_pad, y0[s:e], x0[s:e], cfg,
+                    self.max_depth, self.dem_pct_clip,
                 )
-                dem_tiles = gather_tiles(dem_pad, y0[s:e], x0[s:e], tile)
-                depth_norm = scale_depth_log1p(depth_tiles, self.max_depth)
-                p_clip, dem_min, dem_max = dem_tile_stats(dem_tiles, self.dem_pct_clip)
-                dem_norm = normalize_dem_with_stats(dem_tiles, p_clip, dem_min, dem_max)
-                pred_norm = self.forward_fn(depth_norm[..., None], dem_norm[..., None])
-                pred_m = invert_depth_log1p(pred_norm[..., 0], self.max_depth)
                 self._mosaic_accumulate(carry, chunk_idx(s, e), pred_m)
-                stats[s:e] = torch.stack([p_clip, dem_min, dem_max], dim=-1)
             return self._finish(carry), stats
 
         # Phase 1 — trunk over wide batches; keep LR features + stats.
@@ -367,5 +428,33 @@ class SceneExecutor:
             dem_norm = normalize_dem_with_stats(dem_tiles, st[:, 0], st[:, 1], st[:, 2])
             pred_norm = self.model.tail(feats[s:e], dem_norm[..., None], self.precision)
             pred_m = invert_depth_log1p(pred_norm[..., 0], self.max_depth)
+            self._mosaic_accumulate(carry, chunk_idx(s, e), pred_m)
+        return self._finish(carry), stats
+
+    def _sharded(self, depth_pad, dem_pad, y0, x0, chunk_idx, stats):
+        """The single-phase loop with each chunk split over the ``dp`` devices."""
+        dev = dem_pad.device
+        n = int(y0.shape[0])
+        inputs = {
+            d: tuple(to_device(t, d) for t in (depth_pad, dem_pad, y0, x0))
+            for d in dict.fromkeys(self.shard_devices)
+        }
+        sub = self.chunk // len(self.shard_devices)
+        carry = self._mosaic_init(dev)
+        for s in range(0, n, self.chunk):
+            e = min(n, s + self.chunk)
+            shards = []
+            # enqueue every shard's work before the first copy back
+            for i, d in enumerate(self.shard_devices):
+                a, b = s + i * sub, min(e, s + (i + 1) * sub)
+                if a >= b:
+                    break
+                depth_d, dem_d, y0_d, x0_d = inputs[d]
+                shards.append(predict_tiles(
+                    self.replicas[d], depth_d, dem_d, y0_d[a:b], x0_d[a:b], self.cfg,
+                    self.max_depth, self.dem_pct_clip,
+                ))
+            pred_m = torch.cat([to_device(p, dev) for p, _ in shards])
+            stats[s:e] = torch.cat([to_device(st, dev) for _, st in shards])
             self._mosaic_accumulate(carry, chunk_idx(s, e), pred_m)
         return self._finish(carry), stats

@@ -22,6 +22,16 @@ names the download's encoding: ``uint16``, ``uint12`` (the uint16 codes
 reduced to 12 bits and packed 2 pixels into 3 bytes on the device) or
 ``float32``.
 
+``mesh`` (a :class:`~floodsr_tpu_torch.parallel.mesh.Mesh`) spreads the work
+over several devices, driven from this one process: ``scene_mode=
+"replicated"`` splits each chunk of tiles over the ``dp`` devices
+(:mod:`~floodsr_tpu_torch.engine.scene`), ``"banded"`` shards the scene by row
+(or column) bands (:mod:`~floodsr_tpu_torch.engine.scene_banded`); ``run_tiles``
+splits each batch over ``dp``. Each distinct device of the mesh holds its own
+copy of the model (and so its own ``hr_tail`` weight pack); the scene lives
+on the mesh's first device, and the device postprocess stays off, as in the
+JAX package. With ``mesh=None`` nothing of this runs.
+
 The engine runs on the GPU unless constructed with ``device="cpu"``, and
 raises when CUDA is absent. It sets TF32 off for cuDNN and matmuls when it
 loads, so every f32 stage computes in full f32; a bf16 stage allows TF32 for
@@ -49,6 +59,12 @@ from floodsr_tpu_torch.engine.scene import (
     scene_indices,
     validate_hard_grid,
 )
+from floodsr_tpu_torch.engine.scene_banded import (
+    band_devices,
+    band_inputs,
+    build_banded_scene_executor,
+    pack_band_indices,
+)
 from floodsr_tpu_torch.nn.checkpoint import load_artifact, params_from_jax
 from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig, resolve_precision_policy
 from floodsr_tpu_torch.ops.normalize import (
@@ -64,6 +80,8 @@ from floodsr_tpu_torch.ops.resample import (
     _axis_interp_indices,
     reproject_bilinear,
 )
+from floodsr_tpu_torch.parallel.mesh import batch_sharding, gather_to, mesh_device
+from floodsr_tpu_torch.parallel.streaming import prefetch_to_device
 from floodsr_tpu_torch.tiling import build_window_grid
 
 _POLICY_BY_NAME = {"float32": "f32", "bfloat16": "bf16", "mixed": "mixed"}
@@ -88,8 +106,18 @@ class EngineTorch(EngineBase):
         output_transfer: str = "uint16",
         scene_chunk: int = DEFAULT_CHUNK,
         scene_trunk_chunk: int = DEFAULT_TRUNK_CHUNK,
+        mesh=None,
+        batch_axis: str = "dp",
+        scene_mode: str = "replicated",
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh_device(mesh, device)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        # Sharded-scene formulation (mesh only): "replicated" = ADR-0006's
+        # split-the-chunk default (the scene on one device); "banded" = the
+        # scene sharded by bands for scenes beyond one device's memory.
+        assert scene_mode in {"replicated", "banded"}, scene_mode
+        self.scene_mode = scene_mode
         self._model_fp = Path(model_fp).expanduser().resolve()
         assert self._model_fp.exists(), f"model file does not exist: {self._model_fp}"
         self.log = logger or logging.getLogger(__name__)
@@ -119,6 +147,9 @@ class EngineTorch(EngineBase):
         self.contract: ModelIOContract | None = None
         # (depth_nhwc, dem_nhwc) -> pred_nhwc, normalized domain, on the device
         self._forward = None
+        # the same forward on each distinct device of the mesh (the model's
+        # copy there); {self.device: self._forward} without a mesh
+        self._replicas: dict[torch.device, Any] = {}
         self.last_scene_timings: dict[str, float] = {}
         self.load()
 
@@ -161,23 +192,33 @@ class EngineTorch(EngineBase):
             # Converted-ONNX artifact: forward executes the stored NHWC IR.
             from floodsr_tpu_torch.nn.onnx_convert import GraphProgram
 
-            program = GraphProgram(manifest["graph_ir"], artifact["params"], self.device)
             out_edge = manifest["graph_output_edge"]
             d_name = self.contract.depth_input_name
             m_name = self.contract.dem_input_name
             dtype = self.compute_dtype
 
-            def graph_forward(depth_nhwc, dem_nhwc):
-                feeds = {d_name: depth_nhwc, m_name: dem_nhwc}
-                return program(feeds, [out_edge], dtype)[out_edge]
+            def make_forward(device):
+                program = GraphProgram(manifest["graph_ir"], artifact["params"], device)
 
-            self._forward = graph_forward
+                def graph_forward(depth_nhwc, dem_nhwc):
+                    feeds = {d_name: depth_nhwc, m_name: dem_nhwc}
+                    return program(feeds, [out_edge], dtype)[out_edge]
+
+                return graph_forward
         else:
-            model = ResUNet(self.config)
-            model.load_state_dict(params_from_jax(artifact["params"], artifact["state"]))
-            self.model = model.to(self.device).eval()
+            state_dict = params_from_jax(artifact["params"], artifact["state"])
             stage = self._stage_dtypes
-            self._forward = lambda depth, dem: self.model(depth, dem, precision=stage)
+            models = {}
+
+            def make_forward(device):
+                model = ResUNet(self.config)
+                model.load_state_dict(state_dict)
+                model = models[device] = model.to(device).eval()
+                return lambda depth, dem: model(depth, dem, precision=stage)
+
+        self._build_replicas(make_forward)
+        if architecture != "onnx-graph":
+            self.model = models[self.device]
         self.log.info(
             f"loaded torch model '{self._model_fp.name}' ({architecture}) "
             f"scale={self.contract.scale} device={self.device} "
@@ -227,10 +268,15 @@ class EngineTorch(EngineBase):
         # Minimal config so the scene executor knows the tile geometry.
         self.config = ResUNetConfig(lr_tile=depth_lr_hwc[0], scale=self.contract.scale)
 
-        def onnx_forward(depth_nhwc, dem_nhwc):
-            return executor({"depth_lr": depth_nhwc, "dem_hr": dem_nhwc})[output_name]
+        def make_forward(device):
+            run = executor if device == self.device else OnnxGraphExecutor(model, device)
 
-        self._forward = onnx_forward
+            def onnx_forward(depth_nhwc, dem_nhwc):
+                return run({"depth_lr": depth_nhwc, "dem_hr": dem_nhwc})[output_name]
+
+            return onnx_forward
+
+        self._build_replicas(make_forward)
         self.log.info(
             f"loaded ONNX model '{self._model_fp.name}' via the torch graph executor; "
             f"opset={model.opset} producer='{model.producer}' "
@@ -238,10 +284,20 @@ class EngineTorch(EngineBase):
             f"scale={self.contract.scale} device={self.device}"
         )
 
+    def _build_replicas(self, make_forward) -> None:
+        """``make_forward(device)`` on the engine's device, then on every other
+        distinct device of the mesh."""
+        devices = [self.device]
+        if self.mesh is not None:
+            devices += [d for d in self.mesh.distinct_devices() if d != self.device]
+        self._replicas = {d: make_forward(d) for d in devices}
+        self._forward = self._replicas[self.device]
+
     def close(self) -> None:
         """Release the device weights."""
         self.model = None
         self._forward = None
+        self._replicas = {}
         self.contract = None
         self.config = None
 
@@ -317,7 +373,9 @@ class EngineTorch(EngineBase):
         shapes and fills the caching allocator's pools (device and pinned
         host) at this scene size. ``crop_shapes``: iterable of expected HR
         scene extents; extents that pad to the same whole-tile scene are
-        warmed once. Returns the number of distinct geometries warmed.
+        warmed once (under ``scene_mode="banded"``: the same banded bucket in
+        the same orientation, which is what the banded path runs). Returns
+        the number of distinct geometries warmed.
         """
         assert self._forward is not None and self.config is not None, (
             "engine must be loaded before warmup"
@@ -332,13 +390,22 @@ class EngineTorch(EngineBase):
             _build.build(names)
             for name in names:
                 _build.load(name)
+        banded = self.mesh is not None and self.scene_mode == "banded"
         warmed = set()
         for shape in crop_shapes:
             shape = (int(shape[0]), int(shape[1]))
             content = self.content_shape(shape, tile_lr)
-            if content in warmed:
+            # A tall and a wide shape can band to the same bucket in opposite
+            # orientations: key on both.
+            if banded:
+                _, bucket, _, _, transposed = self.banded_scene_executor(
+                    content, stride_hr=stride_hr, overlap_hr=overlap_hr,
+                    max_depth=max_depth, dem_pct_clip=dem_pct_clip, tile_lr=tile_lr,
+                )
+            key = (bucket, transposed) if banded else content
+            if key in warmed:
                 continue
-            warmed.add(content)
+            warmed.add(key)
             self.run_scene(
                 np.zeros((content[0] // cfg.scale, content[1] // cfg.scale), np.float32),
                 np.zeros(content, np.float32),
@@ -349,7 +416,7 @@ class EngineTorch(EngineBase):
                 crop_shape=content,
                 tile_lr=tile_lr,
             )
-        self.log.info(f"warmed {len(warmed)} scene geometry(ies)")
+        self.log.info(f"warmed {len(warmed)} {'banded ' if banded else ''}scene geometry(ies)")
         return len(warmed)
 
     def run_scene(
@@ -385,6 +452,15 @@ class EngineTorch(EngineBase):
         tile, scale = cfg.hr_tile, cfg.scale
         crop_h, crop_w = int(crop_shape[0]), int(crop_shape[1])
         self.last_scene_timings = {}
+        if self.mesh is not None and self.scene_mode == "banded":
+            return self._run_scene_banded(
+                depth_raw, dem_raw,
+                stride_hr=stride_hr, overlap_hr=overlap_hr,
+                max_depth=max_depth, dem_pct_clip=dem_pct_clip,
+                crop_shape=(crop_h, crop_w), post_resample=post_resample,
+                low_depth_mask_m=low_depth_mask_m, row_sink=row_sink,
+                tile_lr=tile_lr,
+            )
         content = self.content_shape((crop_h, crop_w), tile_lr)
         grid = build_window_grid(content[0], content[1], tile, int(stride_hr))
         if int(overlap_hr) == 0:
@@ -405,6 +481,9 @@ class EngineTorch(EngineBase):
             # only the native ResUNet splits into trunk and tail; a graph
             # runs whole, one forward per chunk
             forward_fn=None if self.model is not None else self._forward,
+            mesh=self.mesh,
+            batch_axis=self.batch_axis,
+            replicas=self._replicas,
         )
 
         t0 = time.perf_counter()
@@ -426,9 +505,17 @@ class EngineTorch(EngineBase):
             row_sink=row_sink,
         )
         t3 = time.perf_counter()
+        self._record_timings(t0, t1, t2, t3, n, content)
+        return out_np, {
+            "p_clip": stats_np[:, 0],
+            "dem_min": stats_np[:, 1],
+            "dem_max": stats_np[:, 2],
+        }
+
+    def _record_timings(self, t0, t1, t2, t3, n: int, scene: tuple[int, int]) -> None:
         self.log.debug(
             f"run_scene timings: h2d={t1 - t0:.3f}s exec={t2 - t1:.3f}s "
-            f"d2h+post={t3 - t2:.3f}s tiles={n} scene={content}"
+            f"d2h+post={t3 - t2:.3f}s tiles={n} scene={scene}"
         )
         # Diagnostic breakdown of the last scene (read by the worker into its
         # diagnostics): upload, device execution (after a synchronize), and
@@ -440,10 +527,173 @@ class EngineTorch(EngineBase):
             "tiles": n,
             **self._finish_timings,
         }
+
+    def banded_scene_executor(
+        self,
+        crop_shape: tuple[int, int],
+        *,
+        stride_hr: int,
+        overlap_hr: int,
+        max_depth: float,
+        dem_pct_clip: float,
+        tile_lr: "int | None" = None,
+    ):
+        """The banded executor for ``crop_shape``: ``(fn, bucket, chunk, cap,
+        transposed)``, as the JAX engine's (``fn`` from
+        :func:`~floodsr_tpu_torch.engine.scene_banded.build_banded_scene_executor`;
+        eager PyTorch has nothing to cache, so it is built per call).
+
+        The bucket is the content (the crop padded to whole tiles) with its
+        rows padded to the quantum ``n_bands × tile``, so each band holds at
+        least one tile. ``transposed=True`` means the scene is banded by
+        COLUMNS: ``bucket`` (and the grid the caller builds) live in the
+        TRANSPOSED scene space. It is chosen when row banding would pad a
+        wide scene's rows ≥2× but column banding would not; when neither
+        orientation offers one content tile row per band without ≥2× padding,
+        this raises. ``cap`` is the bucket-level tile capacity of a band: the
+        most a band of the bucket can own (the stride rows plus a forced
+        trailing-edge row) times the bucket's tile columns, chunk-rounded, so
+        every crop of the bucket packs to the same shapes.
+        """
+        assert self.mesh is not None, "banded scenes require a mesh"
+        tile = self.scene_config(tile_lr).hr_tile
+        n_bands = int(self.mesh.shape[self.batch_axis])
+        quantum = n_bands * tile
+
+        def banded_bucket(h, w):
+            return (-(-h // quantum) * quantum, w)
+
+        crop = (int(crop_shape[0]), int(crop_shape[1]))
+        content_h, content_w = self.content_shape(crop, tile_lr)
+        bucket = banded_bucket(content_h, content_w)
+        transposed = False
+        if bucket[0] >= 2 * content_h:
+            bucket_t = banded_bucket(content_w, content_h)
+            if bucket_t[0] < 2 * content_w:
+                transposed = True
+                bucket = bucket_t
+            else:
+                n_useful = max(1, max(content_h, content_w) // tile)
+                dem_gb = bucket[0] * bucket[1] * 4 / 1e9
+                raise ValueError(
+                    f"scene too small to band: banding over {n_bands} bands "
+                    f"needs a {quantum}-px quantum on the banded axis, "
+                    f"padding the {crop} scene to {bucket[0]} rows "
+                    f"({bucket[0] / content_h:.1f}x the content, "
+                    f"~{dem_gb:.2f} GB DEM in HBM plus accumulators, "
+                    f"and the same factor in dummy tile compute) in BOTH "
+                    f"orientations. Use scene_mode='replicated' (dp over "
+                    f"tile chunks, no row quantum), or a mesh with "
+                    f"dp<={n_useful} so each band holds >=1 content tile "
+                    f"row."
+                )
+        chunk = self.max_batch
+        band = bucket[0] // n_bands
+        cap_rows = -(-band // int(stride_hr)) + 1
+        nx_bucket = int(build_window_grid(tile, bucket[1], tile, int(stride_hr))["nx"])
+        cap = -(-(cap_rows * nx_bucket) // chunk) * chunk
+        fn, _ = build_banded_scene_executor(
+            self.scene_config(tile_lr), scene_shape=bucket, overlap_hr=int(overlap_hr),
+            chunk=chunk, max_depth=float(max_depth), dem_pct_clip=float(dem_pct_clip),
+            mesh=self.mesh, batch_axis=self.batch_axis, replicas=self._replicas,
+            transfer_dtype=self._scene_transfer_dtype, transposed=transposed,
+        )
+        return fn, bucket, chunk, cap, transposed
+
+    def _run_scene_banded(
+        self,
+        depth_raw,
+        dem_raw,
+        *,
+        stride_hr: int,
+        overlap_hr: int,
+        max_depth: float,
+        dem_pct_clip: float,
+        crop_shape: tuple[int, int],
+        post_resample=None,
+        low_depth_mask_m: float = 1e-3,
+        row_sink=None,
+        tile_lr: "int | None" = None,
+    ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+        """Band-sharded scene execution for scenes beyond one device's memory.
+
+        Each band's device holds only its band (+ a one-tile halo) of every
+        input and accumulator; the only exchange is the seam halo
+        (:mod:`floodsr_tpu_torch.engine.scene_banded`). Column banding runs
+        the whole pipeline on the transposed scene and transposes the merged
+        scene back before the finish; the per-tile stats come back in the
+        original orientation's row-major grid order, as on the other paths.
+        """
+        cfg = self.scene_config(tile_lr)
+        tile, scale = cfg.hr_tile, cfg.scale
+        crop_h, crop_w = crop_shape
+        n_bands = int(self.mesh.shape[self.batch_axis])
+        run, bucket, chunk, cap, transposed = self.banded_scene_executor(
+            (crop_h, crop_w), stride_hr=stride_hr, overlap_hr=overlap_hr,
+            max_depth=max_depth, dem_pct_clip=dem_pct_clip, tile_lr=tile_lr,
+        )
+        eff = (crop_w, crop_h) if transposed else (crop_h, crop_w)
+        grid = build_window_grid(*self.content_shape(eff, tile_lr), tile, int(stride_hr))
+        n = len(grid["y0"])
+
+        t0 = time.perf_counter()
+        # Pad on the scene's device in the original orientation, then
+        # transpose for column banding.
+        lr_shape = (bucket[0] // scale, bucket[1] // scale)
+        if transposed:
+            depth_dev = self._put_padded(depth_raw, lr_shape[::-1]).t().contiguous()
+            dem_dev = self._put_padded(dem_raw, bucket[::-1]).t().contiguous()
+        else:
+            depth_dev = self._put_padded(depth_raw, lr_shape)
+            dem_dev = self._put_padded(dem_raw, bucket)
+        banded = pack_band_indices(
+            grid, n_bands=n_bands, band=bucket[0] // n_bands, chunk=chunk, cap=cap
+        )
+        grid_slot = banded.pop("grid_slot")
+        banded["depth"], banded["dem"] = band_inputs(
+            depth_dev, dem_dev, n_bands=n_bands, tile=tile, scale=scale,
+            devices=band_devices(self.mesh, self.batch_axis),
+        )
+        del depth_dev, dem_dev
+        _sync(self.device)
+        t1 = time.perf_counter()
+        bands, stats = run(banded)
+        # Merge the bands on the scene's device.
+        out = gather_to(bands, self.device)
+        if transposed:
+            out = out.t().contiguous()
+        stats_np = np.stack([st.cpu().numpy() for st in stats])
+        _sync(self.device)
+        t2 = time.perf_counter()
+
+        # Reassemble per-tile stats into grid order via the slot map.
+        grid_stats = np.zeros((n, 3), np.float32)
+        for d in range(n_bands):
+            sel = grid_slot[d]
+            live = sel >= 0
+            grid_stats[sel[live]] = stats_np[d][live]
+        if transposed:
+            # The transposed grid enumerates tiles in TRANSPOSED row-major
+            # order; re-sort into the ORIGINAL orientation's row-major order
+            # (primary: original y = transposed x0, secondary: original
+            # x = transposed y0).
+            order = np.lexsort((np.asarray(grid["y0"]), np.asarray(grid["x0"])))
+            grid_stats = grid_stats[order]
+
+        out_np = self._finish_scene(
+            out,
+            crop_shape=(crop_h, crop_w),
+            max_depth=float(max_depth),
+            post_resample=post_resample,
+            low_depth_mask_m=float(low_depth_mask_m),
+            row_sink=row_sink,
+        )
+        t3 = time.perf_counter()
+        self._record_timings(t0, t1, t2, t3, n, bucket)
         return out_np, {
-            "p_clip": stats_np[:, 0],
-            "dem_min": stats_np[:, 1],
-            "dem_max": stats_np[:, 2],
+            "p_clip": grid_stats[:, 0],
+            "dem_min": grid_stats[:, 1],
+            "dem_max": grid_stats[:, 2],
         }
 
     def _finish_scene(
@@ -485,7 +735,12 @@ class EngineTorch(EngineBase):
             dst_shape, src_t, dst_t = post_resample
             dst_shape = tuple(int(v) for v in dst_shape)
             rectilinear = src_t.is_rectilinear() and dst_t.is_rectilinear()
-            if rectilinear and os.environ.get("FLOODSR_DEVICE_POSTPROC", "1") == "1":
+            # (under a mesh the host resamples, as in the JAX package)
+            if (
+                rectilinear
+                and os.environ.get("FLOODSR_DEVICE_POSTPROC", "1") == "1"
+                and self.mesh is None
+            ):
                 # Device-side postprocess: the index and weight plan is
                 # _axis_interp_indices, the same the host resampler uses, so
                 # values match to f32 lerp rounding plus one more quantization
@@ -672,42 +927,94 @@ class EngineTorch(EngineBase):
 
         preds_m = np.empty_like(dem)
         preds_norm = np.empty_like(dem)
-        stats_out = {k: np.empty((n,), np.float32) for k in ("p_clip", "dem_min", "dem_max")}
-        for pos in range(0, n, self.max_batch):
-            end = min(n, pos + self.max_batch)
-            d = torch.from_numpy(depth[pos:end]).to(self.device)
-            m = torch.from_numpy(dem[pos:end]).to(self.device)
-            b = end - pos
-            if normalize_inputs:
-                depth_norm = scale_depth_log1p(d, max_depth)
-                if ref is not None:
-                    st = [
-                        torch.full((b,), v, dtype=torch.float32, device=self.device)
-                        for v in ref
-                    ]
-                    dem_norm = normalize_dem_with_stats(m, *st)
-                    stats = dict(zip(("p_clip", "dem_min", "dem_max"), st))
-                else:
-                    dem_norm, stats = normalize_dem_batch(m, dem_pct_clip)
-            else:
-                depth_norm, dem_norm = d, m
-                stats = {
-                    "p_clip": torch.full((b,), float(dem_pct_clip)),
-                    "dem_min": torch.zeros((b,)),
-                    "dem_max": torch.ones((b,)),
-                }
-            pred_norm = self._forward(depth_norm[..., None], dem_norm[..., None])[..., 0]
-            pred_m = invert_depth_log1p(pred_norm, max_depth)
-            preds_m[pos:end] = pred_m.cpu().numpy()
-            preds_norm[pos:end] = pred_norm.cpu().numpy()
-            for k in stats_out:
-                stats_out[k][pos:end] = stats[k].cpu().numpy()
+        keys = ("p_clip", "dem_min", "dem_max")
+        stats_out = {k: np.empty((n,), np.float32) for k in keys}
+        if self.mesh is None:
+            for pos in range(0, n, self.max_batch):
+                end = min(n, pos + self.max_batch)
+                d = torch.from_numpy(depth[pos:end]).to(self.device)
+                m = torch.from_numpy(dem[pos:end]).to(self.device)
+                pred_m, pred_norm, stats = self._tiles_forward(
+                    self._forward, d, m, max_depth, dem_pct_clip, ref, normalize_inputs
+                )
+                preds_m[pos:end] = pred_m.cpu().numpy()
+                preds_norm[pos:end] = pred_norm.cpu().numpy()
+                for k in keys:
+                    stats_out[k][pos:end] = stats[k].cpu().numpy()
+        else:
+            for pos, take, shards in self._sharded_batches(depth, dem):
+                # every shard's work is enqueued before the first download
+                outs = [
+                    self._tiles_forward(
+                        self._replicas[dev], d, m, max_depth, dem_pct_clip, ref, normalize_inputs
+                    )
+                    for (d, m), dev in zip(shards, self.mesh.axis_devices(self.batch_axis))
+                ]
+                for dst, i in ((preds_m, 0), (preds_norm, 1)):
+                    got = gather_to([o[i] for o in outs], self.device)
+                    dst[pos : pos + take] = got[:take].cpu().numpy()
+                for k in keys:
+                    got = gather_to([o[2][k] for o in outs], self.device)
+                    stats_out[k][pos : pos + take] = got[:take].cpu().numpy()
         return {
             "predictions_m": preds_m,
             "predictions_norm": preds_norm,
             "dem_stats_used": stats_out,
             "runtime_s": float(time.perf_counter() - start),
         }
+
+    def _tiles_forward(self, forward, d, m, max_depth, dem_pct_clip, ref, normalize_inputs):
+        """Normalize, forward and invert one batch of tiles on their device:
+        ``(pred_m, pred_norm, stats)``."""
+        b = d.shape[0]
+        if normalize_inputs:
+            depth_norm = scale_depth_log1p(d, max_depth)
+            if ref is not None:
+                st = [torch.full((b,), v, dtype=torch.float32, device=d.device) for v in ref]
+                dem_norm = normalize_dem_with_stats(m, *st)
+                stats = dict(zip(("p_clip", "dem_min", "dem_max"), st))
+            else:
+                dem_norm, stats = normalize_dem_batch(m, dem_pct_clip)
+        else:
+            depth_norm, dem_norm = d, m
+            stats = {
+                "p_clip": torch.full((b,), float(dem_pct_clip)),
+                "dem_min": torch.zeros((b,)),
+                "dem_max": torch.ones((b,)),
+            }
+        pred_norm = forward(depth_norm[..., None], dem_norm[..., None])[..., 0]
+        return invert_depth_log1p(pred_norm, max_depth), pred_norm, stats
+
+    def _sharded_batches(self, depth: np.ndarray, dem: np.ndarray):
+        """``(pos, take, [(depth, dem) per dp shard])`` for each batch of a
+        meshed ``run_tiles``: the batch's power-of-two bucket rounded up to a
+        multiple of the mesh size and zero-padded (the JAX engine's rule, so
+        the shards are even), split over ``dp`` by :func:`prefetch_to_device`
+        with the next batch's upload in flight."""
+        n = depth.shape[0]
+        mesh_size = self.mesh.size
+        metas: list[tuple[int, int]] = []
+
+        def host_batches():
+            pos = 0
+            while pos < n:
+                take = min(self.max_batch, n - pos)
+                bucket = 1
+                while bucket < take and bucket < self.max_batch:
+                    bucket *= 2
+                bucket = max(min(bucket, self.max_batch), mesh_size)
+                bucket = -(-bucket // mesh_size) * mesh_size
+                d, m = depth[pos : pos + take], dem[pos : pos + take]
+                if take < bucket:
+                    d = np.concatenate([d, np.zeros((bucket - take,) + d.shape[1:], np.float32)])
+                    m = np.concatenate([m, np.zeros((bucket - take,) + m.shape[1:], np.float32)])
+                metas.append((pos, take))
+                yield d, m
+                pos += take
+
+        placed = prefetch_to_device(host_batches(), sharding=batch_sharding(self.mesh))
+        for i, (d_shards, m_shards) in enumerate(placed):
+            yield (*metas[i], list(zip(d_shards, m_shards)))
 
     def run_tile(
         self,

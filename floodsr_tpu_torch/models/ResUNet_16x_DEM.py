@@ -10,7 +10,10 @@ GeoTIFF write, and the same diagnostics dict keys.
 The whole scene runs on the device through :meth:`EngineTorch.run_scene`
 (one upload of the DEM, uint16-encoded when large; the two-phase executor;
 one download). The worker runs on the GPU unless constructed with
-``device="cpu"``, and raises when CUDA is absent.
+``device="cpu"``, and raises when CUDA is absent. ``mesh`` and ``scene_mode``
+go to the engine (:class:`EngineTorch`); under a mesh the DEM cache and the
+prefetch keep their DEMs on the mesh's first device, where the engine keeps
+the scene, as the JAX worker keeps them on its default device.
 
 Serving: recently used DEMs stay resident on the device (terrain is static
 across forecast cycles), :meth:`ModelWorker.prefetch_dem` decodes and uploads
@@ -36,6 +39,7 @@ from floodsr_tpu_torch.device import resolve_device
 from floodsr_tpu_torch.engine import EngineTorch
 from floodsr_tpu_torch.io.geotiff import pixel_size, raster_bounds
 from floodsr_tpu_torch.models.base import Model
+from floodsr_tpu_torch.parallel.mesh import mesh_device
 from floodsr_tpu_torch.preprocessing import (
     _read_single_band_raster,
     resolve_preprocess_config,
@@ -57,12 +61,16 @@ class ModelWorker(Model):
         logger=None,
         compute_dtype: str = "float32",
         max_batch: int = 8,
+        mesh=None,
+        scene_mode: str = "replicated",
         output_transfer: str = "uint16",
         input_transfer: str = "uint16",
         device: str = "cuda",
     ):
         super().__init__(model_fp=model_fp, model_version=self.model_version, logger=logger)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh_device(mesh, device)
+        self.mesh = mesh
+        self.scene_mode = scene_mode
         self.compute_dtype = compute_dtype
         self.max_batch = int(max_batch)
         self.output_transfer = output_transfer
@@ -86,6 +94,8 @@ class ModelWorker(Model):
             logger=self.log,
             compute_dtype=self.compute_dtype,
             max_batch=self.max_batch,
+            mesh=self.mesh,
+            scene_mode=self.scene_mode,
             output_transfer=self.output_transfer,
             device=self.device,
         )

@@ -1,5 +1,17 @@
-"""Host→device streaming for the port; the device mesh comes with the multi-GPU slice."""
+"""The device mesh and host→device streaming of the port."""
 
+from floodsr_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    make_mesh,
+    param_sharding_rules,
+    replicated_sharding,
+)
 from floodsr_tpu_torch.parallel.streaming import prefetch_to_device
 
-__all__ = ["prefetch_to_device"]
+__all__ = [
+    "make_mesh",
+    "batch_sharding",
+    "replicated_sharding",
+    "param_sharding_rules",
+    "prefetch_to_device",
+]

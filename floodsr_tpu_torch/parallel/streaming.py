@@ -6,6 +6,11 @@ each batch is copied from pinned host memory on a side stream, and the
 consumer's stream waits on that copy's event before the batch is handed over,
 so the copy of batch ``k+1`` overlaps the compute on batch ``k`` without a
 host synchronization. On the CPU the batches become torch tensors in order.
+
+With ``sharding=batch_sharding(mesh)`` each leaf is split on dim 0 over the
+mesh's ``dp`` axis and each piece goes to its ``dp`` row's device (the first
+of the row's ``tp`` devices), through one side stream per distinct CUDA
+device.
 """
 
 from __future__ import annotations
@@ -47,32 +52,57 @@ def prefetch_to_device(
 
     ``batches`` yields trees (dicts, lists, tuples) of host arrays; each leaf
     becomes a tensor on ``device``, in the same order and with the same
-    values. ``sharding`` (the JAX package's multi-device placement) is not
-    taken here: placing a batch across GPUs belongs to the multi-GPU slice.
+    values. With ``sharding`` (a :class:`~floodsr_tpu_torch.parallel.mesh.
+    NamedSharding` from ``batch_sharding`` or ``replicated_sharding``) each
+    leaf becomes the list of its per-device shards in ``dp`` order: split on
+    dim 0 over ``dp`` (which must divide it), or one whole copy per ``dp``
+    row; ``device`` is then not used.
     """
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...) places batches across several GPUs; "
-            "that comes with the multi-GPU slice of the port"
-        )
     assert buffer_size >= 1, f"buffer_size must be >= 1; got {buffer_size}"
-    dev = resolve_device(device)
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    if sharding is None:
+        targets = [resolve_device(device)]
+    else:
+        if tuple(sharding.spec) not in ((), ("dp",)):
+            raise ValueError(
+                f"prefetch_to_device places batches split over dp or replicated; "
+                f"got spec {sharding.spec}"
+            )
+        targets = sharding.mesh.axis_devices("dp")
+    split = sharding is not None and tuple(sharding.spec) == ("dp",)
+    streams = {
+        dev: torch.cuda.Stream(dev) for dev in dict.fromkeys(targets) if dev.type == "cuda"
+    }
     queue: deque[tuple[Any, Any]] = deque()
     iterator = iter(batches)
 
-    def put(batch: Any) -> tuple[Any, Any]:
-        if copy_stream is None:
-            return _tree_map(lambda x: torch.tensor(np.asarray(x)), batch), None
-        with torch.cuda.stream(copy_stream):
-            out = _tree_map(
-                lambda x: torch.from_numpy(np.ascontiguousarray(x))
-                .pin_memory()
-                .to(dev, non_blocking=True),
-                batch,
+    def pieces(x) -> list[np.ndarray]:
+        arr = np.asarray(x)
+        if not split:
+            return [arr] * len(targets)
+        if arr.shape[0] % len(targets):
+            raise ValueError(
+                f"a leaf of {arr.shape[0]} rows does not split over dp={len(targets)}"
             )
-            ready = torch.cuda.Event()
-            ready.record(copy_stream)
+        return np.split(arr, len(targets))
+
+    def put_piece(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+        if dev.type != "cuda":
+            return torch.tensor(arr)
+        with torch.cuda.stream(streams[dev]):
+            return torch.from_numpy(np.ascontiguousarray(arr)).pin_memory().to(
+                dev, non_blocking=True
+            )
+
+    def put(batch: Any) -> tuple[Any, Any]:
+        def leaf(x):
+            placed = [put_piece(p, dev) for p, dev in zip(pieces(x), targets)]
+            return placed if sharding is not None else placed[0]
+
+        out = _tree_map(leaf, batch)
+        ready = {}
+        for dev, stream in streams.items():
+            ready[dev] = torch.cuda.Event()
+            ready[dev].record(stream)
         return out, ready
 
     try:
@@ -87,11 +117,11 @@ def prefetch_to_device(
             queue.append(put(next(iterator)))
         except StopIteration:
             pass
-        if ready is not None:
-            consumer = torch.cuda.current_stream(dev)
-            consumer.wait_event(ready)
-            for t in _tree_leaves(batch):
+        for dev, event in ready.items():
+            torch.cuda.current_stream(dev).wait_event(event)
+        for t in _tree_leaves(batch):
+            if t.device.type == "cuda":
                 # allocated on the copy stream, used on the consumer's: the
                 # caching allocator must not reuse the memory before then
-                t.record_stream(consumer)
+                t.record_stream(torch.cuda.current_stream(t.device))
         yield batch

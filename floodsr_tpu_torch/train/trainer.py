@@ -50,7 +50,11 @@ from floodsr_tpu_torch.nn.resunet import (
 from floodsr_tpu_torch.ops.normalize import invert_depth_log1p
 
 _INT32_MAX = 2**31 - 1
-_MULTI_GPU = "that comes with the multi-GPU slice of the port"
+_MULTI_GPU = (
+    "that comes with the multi-GPU training slice of the port: data-parallel "
+    "steps with batch-norm statistics over the global batch and gradients "
+    "summed over dp, then convolutions split over tp"
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -449,13 +449,30 @@ class TestDeviceOption:
         ["--mesh", "auto"], ["--scene-mode", "banded"],
     ])
     def test_mesh_options_are_refused(
-        self, tiny_model_fp, synthetic_tohr_tiles, tmp_path, extra
+        self, tiny_model_fp, synthetic_tohr_tiles, tmp_path, caplog, extra
     ):
-        with pytest.raises(SystemExit) as err:
-            main(self._argv(synthetic_tohr_tiles, tiny_model_fp, tmp_path / "x.tif") + extra)
-        assert err.value.code == 2
-        with pytest.raises(ValueError, match="unsupported tohr machine-json key"):
-            cli_torch._build_tohr_machine_cli_tokens({extra[0][2:].replace("-", "_"): "x"}, [])
+        """The port refused these options until it had a mesh; the same argv
+        now gets what the JAX CLI gives it. ``--mesh auto`` (one CPU with
+        ``--device cpu``) runs and equals the plain raster within one uint16
+        step; ``--scene-mode`` without ``--mesh`` fails with the JAX CLI's
+        exit code and message. Both are machine-json keys."""
+        argv = self._argv(synthetic_tohr_tiles, tiny_model_fp, tmp_path / "port.tif")
+        code_t = main(argv + extra)
+        code_j = main_jax(
+            self._argv(synthetic_tohr_tiles, tiny_model_fp, tmp_path / "jax.tif") + extra
+        )
+        assert code_t == code_j
+        if extra[0] == "--mesh":
+            assert code_t == 0
+            assert main(self._argv(synthetic_tohr_tiles, tiny_model_fp, tmp_path / "plain.tif")) == 0
+            got, want = read_raster(tmp_path / "port.tif")[0], read_raster(tmp_path / "plain.tif")[0]
+            assert np.abs(got - want).max() <= 5.0 / 65535 + 1e-6
+        else:
+            assert code_t == 1
+            assert caplog.text.count("--scene-mode requires --mesh") == 2
+            assert not (tmp_path / "port.tif").exists()
+        key = extra[0][2:].replace("-", "_")
+        assert cli_torch._build_tohr_machine_cli_tokens({key: extra[1]}, []) == extra
 
     @pytest.mark.parametrize("dtype", ["bfloat16", "mixed"])
     def test_compute_dtype_from_the_config_runs(

@@ -232,10 +232,6 @@ def test_inference_builds_no_graph_and_training_entry_points_need_cuda_or_cpu():
     for make in (tt.make_train_step, tt.make_eval_step):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             make(ResUNetConfig(**TINY), tt.TrainConfig(), mesh=object())
-    from floodsr_tpu_torch.parallel.streaming import prefetch_to_device
-
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        list(prefetch_to_device(iter([np.ones(2)]), sharding=object(), device="cpu"))
 
 
 def test_example_trains_on_the_cpu(tmp_path, monkeypatch, capsys):
