@@ -110,8 +110,22 @@ Phases (any failure raises and exits non-zero; none is caught):
     training checkpoint saved and restored bit for bit; the exported
     inference artifact through ``tohr`` on ``synth_flagship`` (K1 and K2
     launched). One JSON line of the phase's numbers;
-19. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval``; each
-    kernel with ``launches_mesh``), the
+19. train_mesh — the same configuration and batch on a mesh of the one
+    card: ``make_mesh(devices=[cuda:0] * 4)`` (dp=4) and ``... tp=2`` (dp=2,
+    tp=2). Each mesh's first step against the single step on the card (loss
+    and grad norm to rtol 1e-5; moments and running stats to
+    ``tests/test_torch_train_mesh.py``'s tolerances widened by the single
+    step's own distance from the CPU's; the parameters against Adam's update
+    from the step's own moments, as ``train`` holds the card), the ``dp``
+    replicas bit-equal and the ``tp`` pieces slices of their leaves; 10 timed
+    steps (CUDA events, peak MiB) beside the single step's; the sharded eval
+    step (K1 once per ``dp`` row, on its tensor-core route; with
+    ``--profile`` seen by the profiler) against the unsharded eval; the
+    placed state's checkpoint restored bit for bit; over two GPUs where the
+    machine has them. Four entries share one card: the times read the mesh's
+    overheads, not a speed-up. One ``{"train_mesh": ...}`` JSON line;
+20. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval`` and
+    ``launches_train_mesh_eval``; each kernel with ``launches_mesh``), the
     card's name and power limit, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
@@ -2375,6 +2389,7 @@ def phase_train(torch, seed: int, tmp: Path, card: str, with_profile: bool = Fal
         f"{json.dumps(errs)} (tolerances {json.dumps(tol)}); loss {mg['loss']:.6f} grad_norm {mg['grad_norm']:.4f}")
     if not all(errs[k] <= tol[k] for k in tol):
         raise AssertionError(f"train: card vs CPU {errs} > {tol}")
+    cpu_first = leaves_of(tt, cpu)  # the CPU's first step, phase_train_mesh's yardstick
     del first, gpu, cpu
 
     # FLOPs of one step: counted over the step's products, and from the config
@@ -2508,7 +2523,224 @@ def phase_train(torch, seed: int, tmp: Path, card: str, with_profile: bool = Fal
         **{f"{name}_{k}": v for name, run in runs.items() for k, v in run.items() if k != "loss_curve"},
     }
     print(json.dumps({"train": report}), flush=True)
-    return {"k1_launches_eval": counts["hr_tail"], "k1_eval_ms": k1_eval_ms}
+    return {
+        "k1_launches_eval": counts["hr_tail"], "k1_eval_ms": k1_eval_ms,
+        "cfg": cfg, "tcfg": tcfg, "batch": batch, "val": val, "cpu_first": cpu_first,
+    }
+
+
+MESH_TRAIN_STEPS = 10  # timed steps of each sharded step (CUDA events)
+
+
+def leaves_of(tt, state) -> dict:
+    """A port state's leaves as float64 numpy (a placed state gathered from
+    its first row): ``p.`` parameters and running stats, ``mu.``/``nu.`` the
+    Adam moments, ``counts`` the two counts."""
+    whole = tt.unshard_train_state(state)
+    out = {f"p.{k}": v.cpu().double().numpy() for k, v in whole.model.state_dict().items()}
+    (count, mu, nu), (sched,) = whole.opt_state[-1]
+    out.update({f"mu.{k}": v.cpu().double().numpy() for k, v in mu.items()})
+    out.update({f"nu.{k}": v.cpu().double().numpy() for k, v in nu.items()})
+    out["counts"] = np.array([int(count), int(sched)])
+    return out
+
+
+def mesh_vs_single(got: dict, want: dict, cpu: dict, start: dict, lr: float) -> dict:
+    """One sharded step's leaves (``got``) against the single step's on the
+    card (``want``), both from ``start``, with the same step on the CPU
+    (``cpu``) as the yardstick of the card's own noise.
+
+    ``tests/test_torch_train_mesh.py``'s tolerances for the moments and the
+    running stats, each widened by twice the single step's distance from the
+    CPU's on that leaf: cuDNN's strict-f32 algorithms put about 2e-4 of a
+    leaf's largest gradient of noise into the card's gradients at the
+    flagship's widths, and noise where the CPU's gradient is exactly 0
+    (``tools/train_mesh_grad_noise.py``). Each moment's difference over 1e-3
+    of its leaf's largest (the largest of its kind for ``conv1.b``, whose
+    true gradient is 0) plus that; the running stats' over 1e-5 (``bn2.mean``:
+    plus ``(1 − momentum) · 2 · 3.2 · lr``) plus that. The parameters as
+    ``phase_train`` holds the card: Adam divides each element by its own
+    ``|g|``, so one whose gradient is near the noise or near Adam's ``eps``
+    moves apart on two devices; each parameter is held instead to optax's
+    update computed in float64 from the step's own moments (in units of
+    ``lr``), and to Adam's bound ``3.2 · lr``; the share of elements more than
+    1e-3 of ``lr`` from the single step's is reported. Each reading but that
+    share must stay at or under 1; the counts equal."""
+    bound = 3.2 * lr
+    tops = {kind: max(np.abs(v).max() for k, v in want.items() if k.startswith(kind))
+            for kind in ("mu.", "nu.")}
+    out = {"adam_bound": 0.0, "update_vs_formula": 0.0, "mu": 0.0, "nu": 0.0, "bn_stats": 0.0}
+    worst, moved, size = {}, 0, 0
+    for key, w in want.items():
+        g, noise = got[key], key.endswith("conv1.b")
+        if key == "counts":
+            if not np.array_equal(g, w):
+                raise AssertionError(f"train_mesh: counts {g} != {w}")
+            continue
+        card = 2 * np.abs(w - cpu[key]).max()
+        readings = {}
+        if key.startswith(("mu.", "nu.")):
+            scale = 1e-3 * (tops[key[:3]] if noise else np.abs(w).max())
+            readings[key[:2]] = np.abs(g - w).max() / (scale + card)
+        elif key.endswith((".mean", ".var")):
+            atol = 1e-5 + (0.02 * bound if key.endswith("bn2.mean") else 0.0)
+            readings["bn_stats"] = np.abs(g - w).max() / (atol + card)
+        else:
+            mu, nu = got["mu." + key[2:]], got["nu." + key[2:]]
+            update = (mu / (1 - 0.9)) / (np.sqrt(nu / (1 - 0.999)) + 1e-8)
+            readings["update_vs_formula"] = np.abs(g - (start[key] - lr * update)).max() / (1e-3 * lr)
+            readings["adam_bound"] = np.abs(g - start[key]).max() / bound
+            moved += int((np.abs(g - w) > 1e-3 * lr).sum())
+            size += g.size
+        for kind, err in readings.items():
+            if float(err) > out[kind]:
+                out[kind], worst[kind] = float(err), key
+    out["share_moved_apart"] = moved / size
+    out["worst_leaf"] = worst
+    return out
+
+
+def placed_ok(torch, tt, placed) -> None:
+    """Every replica bit-equal to row 0's, every tensor on its entry's device,
+    and each ``tp`` piece a ``1/tp`` slice of the whole leaf."""
+    tp = placed.mesh.shape["tp"]
+    whole = tt.unshard_train_state(placed, "cuda").model.state_dict()
+    for (i, j), entry in np.ndenumerate(placed.entries):
+        first = placed.entries[0, j]
+        sd, sd0 = entry.model.state_dict(), first.model.state_dict()
+        (c, mu, nu), (s,) = entry.opt_state[-1]
+        (c0, mu0, nu0), (s0,) = first.opt_state[-1]
+        same = all(torch.equal(sd[k], sd0[k]) for k in sd) and all(
+            torch.equal(a[k], b[k]) for a, b in ((mu, mu0), (nu, nu0)) for k in a
+        ) and torch.equal(c, c0) and torch.equal(s, s0)
+        if not same:
+            raise AssertionError(f"train_mesh: entry {(i, j)} differs from its row-0 replica")
+        if any(t.device != placed.mesh.devices[i, j] for t in sd.values()):
+            raise AssertionError(f"train_mesh: entry {(i, j)} holds a tensor off its device")
+        for k in placed.split:
+            piece = torch.chunk(whole[k], tp, dim=0)[j]
+            if sd[k].shape[0] * tp != whole[k].shape[0] or not torch.equal(sd[k], piece):
+                raise AssertionError(f"train_mesh: entry {(i, j)}'s piece of {k} is not slice {j} of {tp}")
+
+
+def phase_train_mesh(torch, seed: int, tmp: Path, card: str, train: dict,
+                     with_profile: bool = False) -> dict:
+    """Training on a mesh of the one card: the flagship config at batch 8 over
+    ``make_mesh(devices=[cuda:0] * 4)`` (dp=4) and ``... tp=2`` (dp=2, tp=2),
+    each first step against the single step on the card, timed steps beside
+    the single step's, the sharded eval step with K1 counted (``dp`` launches
+    a call), a checkpoint round trip of the placed state, and the same step
+    over two GPUs where the machine has them. Four entries share one card:
+    the times read the mesh's overheads, not a speed-up."""
+    from floodsr_tpu_torch.device import resolve_device
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+    from floodsr_tpu_torch.parallel.mesh import make_mesh
+    from floodsr_tpu_torch.train import trainer as tt
+
+    t0 = time.perf_counter()
+    cfg, tcfg, val = train["cfg"], train["tcfg"], train["val"]
+    cuda0 = resolve_device("cuda")
+    batch = {k: torch.as_tensor(v).to(cuda0) for k, v in train["batch"].items()}
+    meshes = {"dp4": make_mesh(devices=[cuda0] * 4), "dp2_tp2": make_mesh(devices=[cuda0] * 4, tp=2)}
+    if torch.cuda.device_count() >= 2:
+        meshes["two_gpus_dp2"] = make_mesh(2)
+
+    def timed(step, state) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MESH_TRAIN_STEPS):
+            state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"train_mesh: loss {metrics}")
+        return start.elapsed_time(end) / MESH_TRAIN_STEPS, torch.cuda.max_memory_allocated() / 2**20
+
+    # the single step on the card: the reference of the first step, then timed
+    single = tt.init_train_state(seed, cfg, tcfg, device="cuda")
+    start = leaves_of(tt, single)
+    single_step = tt.make_train_step(cfg, tcfg)
+    single, m_single = single_step(single, batch)
+    want = leaves_of(tt, single)
+    m_single = {k: float(v) for k, v in m_single.items()}
+    ms, peak = timed(single_step, single)
+    report = {"card": card, "config": "flagship", "batch": TRAIN_BATCH,
+              "timed_steps": MESH_TRAIN_STEPS, "single": {"ms_per_step": ms, "peak_mib": peak}}
+    if with_profile:
+        prof = device_profile(torch, lambda: single_step(single, batch))
+        report["single"]["step_device_busy_ms"] = prof["device_busy_s"] * 1e3
+        report["single"]["step_device_idle_share"] = 1.0 - prof["device_busy_s"] * 1e3 / ms
+    del single
+    launches = {}
+    eval_step_single = tt.make_eval_step(cfg, tcfg)
+    for name, mesh in meshes.items():
+        placed = tt.shard_train_state(tt.init_train_state(seed, cfg, tcfg, device="cuda"), mesh)
+        step = tt.make_train_step(cfg, tcfg, mesh=mesh)
+        placed, metrics = step(placed, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        errs = {
+            "loss_rel": abs(metrics["loss"] - m_single["loss"]) / abs(m_single["loss"]),
+            "grad_norm_rel": abs(metrics["grad_norm"] - m_single["grad_norm"]) / abs(m_single["grad_norm"]),
+            **mesh_vs_single(leaves_of(tt, placed), want, train["cpu_first"], start, tcfg.base_lr),
+        }
+        log(f"[train_mesh] {name} first step against the single step: {json.dumps(errs)}")
+        held = errs["loss_rel"] <= 1e-5 and errs["grad_norm_rel"] <= 1e-5 and all(
+            errs[k] <= 1.0 for k in ("adam_bound", "update_vs_formula", "mu", "nu", "bn_stats")
+        )
+        if not held:
+            raise AssertionError(f"train_mesh: {name} against the single step: {errs}")
+        placed_ok(torch, tt, placed)
+        ms, peak = timed(step, placed)
+        entry = {"first_step": errs, "ms_per_step": ms, "peak_mib": peak}
+        if with_profile:
+            prof = device_profile(torch, lambda: step(placed, batch))
+            entry["step_device_busy_ms"] = prof["device_busy_s"] * 1e3
+            entry["step_device_idle_share"] = 1.0 - prof["device_busy_s"] * 1e3 / ms
+            log(f"[profile] train_mesh {name} step {json.dumps(prof)}")
+
+        eval_step = tt.make_eval_step(cfg, tcfg, mesh=mesh)
+        eval_step(placed, val)  # warm: K1's weight pack, cuDNN's plans
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        got = {k: float(v) for k, v in eval_step(placed, val).items()}
+        eval_s = time.perf_counter() - t1
+        counts, routes = launch_counts(), route_counts()["hr_tail"]
+        dp = mesh.shape["dp"]
+        if not counts["hr_tail"] == routes["tensor"] == dp:
+            raise AssertionError(f"train_mesh: {name} eval launched K1 {counts} by route {routes}, dp={dp}")
+        ref = {k: float(v) for k, v in eval_step_single(tt.unshard_train_state(placed, "cuda"), val).items()}
+        if not all(abs(got[k] - ref[k]) <= 1e-3 * max(1.0, abs(ref[k])) for k in ref if np.isfinite(ref[k])):
+            raise AssertionError(f"train_mesh: {name} sharded eval {got} vs unsharded {ref}")
+        launches[name] = counts["hr_tail"]
+        entry.update({"eval_s": eval_s, "eval_k1_launches": counts["hr_tail"], "eval": got})
+        if with_profile:
+            prof = device_profile(torch, lambda: eval_step(placed, val))
+            if not prof["kernel_device_ms"]["hr_tail"] > 0:
+                raise AssertionError(f"train_mesh: the profiler saw no K1 in {name}'s eval: {prof}")
+            entry["eval_k1_device_ms"] = prof["kernel_device_ms"]["hr_tail"]
+            log(f"[profile] train_mesh {name} eval {json.dumps(prof)}")
+        if name == "dp2_tp2":
+            fp = tt.save_train_state(tmp / "train_mesh_ckpt.fsrz", placed, cfg)
+            restored, _ = tt.restore_train_state(fp, tcfg, device="cuda")
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    leaves_of(tt, restored).values(), leaves_of(tt, placed).values())):
+                raise AssertionError("train_mesh: the restored checkpoint differs from the placed state")
+            entry["checkpoint_restored_bit_equal"] = True
+        report[name] = entry
+        log(f"[train_mesh] {name} on {card} (four entries share one card where the mesh repeats "
+            f"it: overheads, not a speed-up): {ms:.2f} ms a step, peak {peak:.0f} MiB "
+            f"(single step {report['single']['ms_per_step']:.2f} ms, {report['single']['peak_mib']:.0f} MiB); "
+            f"eval {eval_s * 1e3:.1f} ms, K1 {counts['hr_tail']} launch(es)")
+        del placed
+    if "two_gpus_dp2" not in meshes:
+        log("[train_mesh] two GPUs: not run (this machine has one)")
+    report["two_gpus"] = "two_gpus_dp2" in meshes
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"train_mesh": report}), flush=True)
+    return {"k1_launches_eval": launches}
 
 
 def main(argv=None) -> int:
@@ -2558,6 +2790,7 @@ def main(argv=None) -> int:
         phase_finish(torch, args.seed, SCENE_SIZE, tmp)
         onnx = phase_onnx(torch, args.seed, SCENE_SIZE, tmp, args.profile)
         train = phase_train(torch, args.seed, tmp, device["smi"], args.profile)
+        train_mesh = phase_train_mesh(torch, args.seed, tmp, device["smi"], train, args.profile)
     # Each serving path's own launches, read around that path alone.
     for k in kernels:
         k["launches_stream"] = stream["launches"][k["name"]]
@@ -2586,6 +2819,8 @@ def main(argv=None) -> int:
     kernels.insert(2, k1_bf16)
     # K1 in the training path's eval step (the train step itself runs unfused)
     k1["launches_train_eval"], k1["train_eval_ms"] = train["k1_launches_eval"], train["k1_eval_ms"]
+    # and once per dp row in the sharded eval step of each mesh
+    k1["launches_train_mesh_eval"] = train_mesh["k1_launches_eval"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])

@@ -47,7 +47,9 @@ the new running stats returned (not written) as ``momentum·old + (1 −
 momentum)·batch``, and the tail unfused (the ``hr_tail`` kernel has no
 backward). :func:`init_resunet` draws the JAX package's initial weights from
 the same numpy generator, bit for bit; :func:`floodsr_tpu_torch.nn.
-checkpoint.params_from_jax` loads them.
+checkpoint.params_from_jax` loads them. :func:`forward_train_mesh` is the
+training forward over a ``(dp, tp)`` mesh: batch norm over the global batch
+(:func:`batch_norm_across`), convolutions split by output channel over ``tp``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from floodsr_tpu_torch.parallel.mesh import all_gather, broadcast, psum, to_device
 
 PRECISION_STAGES = ("trunk", "sr_up", "tail", "head")
 
@@ -442,6 +446,21 @@ class DecoderStage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
+def check_inputs(cfg: ResUNetConfig, depth_lr: torch.Tensor, dem_hr: torch.Tensor) -> None:
+    """The trunk's input checks: rank-4 NHWC, LR dims divisible by 2^levels."""
+    if depth_lr.ndim != 4 or dem_hr.ndim != 4:
+        raise AssertionError(
+            f"inputs must be rank-4 NHWC; got {tuple(depth_lr.shape)} and "
+            f"{tuple(dem_hr.shape)}"
+        )
+    divisor = 2**cfg.levels
+    if depth_lr.shape[1] % divisor or depth_lr.shape[2] % divisor:
+        raise AssertionError(
+            f"LR spatial dims {tuple(depth_lr.shape[1:3])} must be divisible by "
+            f"2^levels={divisor} for the UNet skip shapes to line up"
+        )
+
+
 def hr_tail_eligible(model: "ResUNet") -> bool:
     """Whether the hand-written ``hr_tail`` kernel covers this configuration.
 
@@ -513,18 +532,7 @@ class ResUNet(nn.Module):
     def _trunk(
         self, depth_lr: torch.Tensor, dem_hr: torch.Tensor, stage: dict, stats=None
     ) -> torch.Tensor:
-        cfg = self.cfg
-        if depth_lr.ndim != 4 or dem_hr.ndim != 4:
-            raise AssertionError(
-                f"inputs must be rank-4 NHWC; got {tuple(depth_lr.shape)} and "
-                f"{tuple(dem_hr.shape)}"
-            )
-        divisor = 2**cfg.levels
-        if depth_lr.shape[1] % divisor or depth_lr.shape[2] % divisor:
-            raise AssertionError(
-                f"LR spatial dims {tuple(depth_lr.shape[1:3])} must be divisible by "
-                f"2^levels={divisor} for the UNet skip shapes to line up"
-            )
+        check_inputs(self.cfg, depth_lr, dem_hr)
         x_dtype = stage["trunk"]
         with bf16_products(x_dtype == torch.bfloat16 and depth_lr.is_cuda):
             return self._trunk_body(depth_lr.to(x_dtype), dem_hr.to(x_dtype), stats)
@@ -693,3 +701,255 @@ class ResUNet(nn.Module):
             if module in stats:
                 new_stats[f"{name}.mean"], new_stats[f"{name}.var"] = stats[module]
         return pred, new_stats
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh
+# ---------------------------------------------------------------------------
+
+
+def batch_norm_across(
+    xs: list[torch.Tensor], scales: list[torch.Tensor], offsets: list[torch.Tensor], eps: float
+) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Training batch norm of NCHW shards by the statistics of the whole batch.
+
+    ``xs[i]`` is row ``i``'s shard, on its device, normalized with that row's
+    copies ``scales[i]``/``offsets[i]``. Two passes, as ``jnp.var``: the
+    shards' f32 sums, added on the first shard's device (:func:`psum`), over
+    the N·H·W of every shard give the mean; it goes back to each shard
+    (:func:`broadcast`), whose f32 sums of ``(x − mean)²`` are added the same
+    way for the biased variance (a one-pass ``E[x²] − E[x]²`` cancels on
+    features of ~1e4). Both round to the dtype of ``xs``, as
+    :meth:`BatchNorm.batch_affine` does. The gradient flows through the sums
+    and the copies, so the backward reduces ``dy`` and ``dy·x̂`` over every
+    shard as well. Returns the normalized shards and the batch ``(mean,
+    var)`` in f32 on the first shard's device.
+    """
+    devices = [x.device for x in xs]
+    dtype = xs[0].dtype
+    count = sum(x.shape[0] * x.shape[2] * x.shape[3] for x in xs)
+    xf = [x.to(torch.float32) for x in xs]
+    mean = psum([x.sum(dim=(0, 2, 3)) for x in xf], devices[0]) / count
+    means = broadcast(mean, devices)
+    var = psum(
+        [torch.square(x - m[None, :, None, None]).sum(dim=(0, 2, 3)) for x, m in zip(xf, means)],
+        devices[0],
+    ) / count
+    ys = []
+    for x, m, v, scale, offset in zip(xs, means, broadcast(var, devices), scales, offsets):
+        m, v = m.to(dtype).to(torch.float32), v.to(dtype).to(torch.float32)
+        inv = torch.rsqrt(v + eps)
+        a = (scale * inv).to(dtype)
+        c = (offset - scale * m * inv).to(dtype)
+        ys.append(x * a[None, :, None, None] + c[None, :, None, None])
+    return ys, mean.to(dtype).to(torch.float32), var.to(dtype).to(torch.float32)
+
+
+@dataclasses.dataclass
+class _Act:
+    """An NCHW activation on the mesh: ``parts[i][j]`` on entry ``(i, j)``,
+    holding channel piece ``j`` when ``split``, else every channel."""
+
+    parts: list
+    split: bool
+
+
+@dataclasses.dataclass
+class _ConvPiece:
+    """What :func:`conv2d_same` reads of a :class:`Conv`: ``w`` (OIHW), ``b``."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+
+class _MeshForward:
+    """:func:`forward_train_mesh`'s state: the entries' tensors, the new stats."""
+
+    def __init__(self, cfg: ResUNetConfig, tensors: np.ndarray, split, devices: np.ndarray,
+                 stage: dict):
+        self.cfg, self.t, self.split, self.stage, self.devices = cfg, tensors, split, stage, devices
+        self.dp, self.tp = devices.shape
+        self.on_cuda = devices[0, 0].type == "cuda"
+        self.stats: dict[str, torch.Tensor] = {}
+
+    def _map(self, fn, *grids) -> list:
+        return [[fn(*(g[i][j] for g in grids)) for j in range(self.tp)] for i in range(self.dp)]
+
+    def _local(self, x: _Act, fn) -> _Act:
+        """An operation on each entry's own part (elementwise, a strided view)."""
+        return _Act(self._map(fn, x.parts), x.split)
+
+    def _layout(self, x: _Act, split: bool) -> list:
+        """``x``'s parts as channel pieces (a slice of a whole part) or whole
+        (the pieces gathered over the row)."""
+        if split == x.split:
+            return x.parts
+        if split:
+            return [
+                [torch.chunk(p, self.tp, dim=1)[j] for j, p in enumerate(row)] for row in x.parts
+            ]
+        return [all_gather(row, dim=1) for row in x.parts]
+
+    def _cat(self, xs: list[_Act]) -> _Act:
+        grids = [self._layout(x, False) for x in xs]
+        return _Act(self._map(lambda *ps: torch.cat(ps, dim=1), *grids), False)
+
+    def _conv(self, x: _Act, name: str, stride: int = 1, transpose: bool = False) -> _Act:
+        """Entry ``(i, j)`` convolves its whole input with the weights it holds:
+        output piece ``j`` of a split convolution, else every channel."""
+
+        def conv(t: dict, xij: torch.Tensor) -> torch.Tensor:
+            piece = _ConvPiece(t[f"{name}.w"], t[f"{name}.b"])
+            if transpose:
+                y = conv_transpose_nhwc(xij.permute(0, 2, 3, 1), piece, stride)
+                return y.permute(0, 3, 1, 2)
+            return conv2d_same(xij, piece, stride)
+
+        return _Act(self._map(conv, self.t, self._layout(x, False)), f"{name}.w" in self.split)
+
+    def _bn(self, x: _Act, name: str) -> _Act:
+        """Batch norm of each ``tp`` column over the rows, by the global batch's
+        statistics; the new running stats kept for the trainer."""
+        cfg = self.cfg
+        split = f"{name}.scale" in self.split
+        xs = self._layout(x, split)
+        out = [[None] * self.tp for _ in range(self.dp)]
+        for j in range(self.tp):
+            col = [self.t[i, j] for i in range(self.dp)]
+            ys, mean, var = batch_norm_across(
+                [xs[i][j] for i in range(self.dp)],
+                [t[f"{name}.scale"] for t in col], [t[f"{name}.offset"] for t in col], cfg.bn_eps,
+            )
+            for i, y in enumerate(ys):
+                out[i][j] = y
+            m = cfg.bn_momentum
+            self.stats.setdefault(f"{name}.mean", []).append(
+                m * col[0][f"{name}.mean"] + (1 - m) * mean.detach()
+            )
+            self.stats.setdefault(f"{name}.var", []).append(
+                m * col[0][f"{name}.var"] + (1 - m) * var.detach()
+            )
+        return _Act(out, split)
+
+    def _block(self, x: _Act, name: str, stride: int = 1) -> _Act:
+        """:meth:`ResBlock.forward` with training batch norm."""
+        y = self._local(self._bn(x, f"{name}.bn1"), torch.relu)
+        y = self._conv(y, f"{name}.conv1", stride)
+        y = self._local(self._bn(y, f"{name}.bn2"), torch.relu)
+        y = self._conv(y, f"{name}.conv2")
+        if f"{name}.proj.w" in self.t[0, 0]:
+            shortcut = self._conv(x, f"{name}.proj", stride)
+        elif stride != 1:
+            shortcut = self._local(x, lambda p: p[:, :, ::stride, ::stride])
+        else:
+            shortcut = x
+        return _Act(self._map(torch.add, y.parts, self._layout(shortcut, y.split)), y.split)
+
+    def trunk(self, depth_lr: list, dem_hr: list) -> _Act:
+        """:meth:`ResUNet._trunk_body`, its output left NCHW."""
+        cfg, dtype, s = self.cfg, self.stage["trunk"], self.cfg.scale
+
+        def stem_input(depth: torch.Tensor, dem: torch.Tensor) -> torch.Tensor:
+            depth, dem = depth.to(dtype), dem.to(dtype)
+            n, hh, ww, c = dem.shape
+            dem_lr = dem.reshape(n, hh // s, s, ww // s, s, c).mean(dim=(2, 4))
+            return torch.cat([depth, dem_lr], dim=-1).permute(0, 3, 1, 2)
+
+        with bf16_products(dtype == torch.bfloat16 and self.on_cuda):
+            x = self._conv(_Act(self._map(stem_input, depth_lr, dem_hr), False), "stem")
+            skips = []
+            for stage in range(len(cfg.widths)):
+                for bi in range(cfg.enc_blocks):
+                    x = self._block(x, f"enc.{stage}.{bi}", 2 if (stage > 0 and bi == 0) else 1)
+                if stage < len(cfg.widths) - 1:
+                    skips.append(x)
+            for stage, skip in enumerate(reversed(skips)):
+                x = self._cat([self._conv(x, f"dec.{stage}.up", 2, transpose=True), skip])
+                for bi in range(cfg.dec_blocks):
+                    x = self._block(x, f"dec.{stage}.blocks.{bi}")
+        return x
+
+    def tail(self, feat: _Act, dem_hr: list) -> list[torch.Tensor]:
+        """:meth:`ResUNet._tail` with the unfused blocks; the head's pieces
+        gathered on each row's first entry."""
+        cfg = self.cfg
+        sr_dtype, tail_dtype = self.stage["sr_up"], self.stage["tail"]
+        s2d = int(cfg.hr_s2d)
+        s0, s1 = split_scale(cfg.scale // s2d)
+        x = self._local(feat, lambda p: p.to(sr_dtype))
+        with bf16_products(sr_dtype == torch.bfloat16 and self.on_cuda):
+            x = self._local(self._conv(x, "sr_up1", s0, transpose=True), torch.relu)
+            x = self._local(self._conv(x, "sr_up2", s1, transpose=True), torch.relu)
+        x = self._local(x, lambda p: p.to(tail_dtype))
+
+        def dem_input(dem: torch.Tensor) -> torch.Tensor:
+            dem = dem.to(tail_dtype)
+            n, hh, ww, _ = dem.shape
+            if s2d > 1:
+                dem = (
+                    dem.reshape(n, hh // s2d, s2d, ww // s2d, s2d, 1)
+                    .permute(0, 1, 3, 2, 4, 5)
+                    .reshape(n, hh // s2d, ww // s2d, s2d * s2d)
+                )
+            return dem.permute(0, 3, 1, 2)
+
+        with bf16_products(tail_dtype == torch.bfloat16 and self.on_cuda):
+            dem_feat = self._conv(_Act(self._map(dem_input, dem_hr), False), "dem_feat")
+            y = self._cat([x, self._local(dem_feat, torch.relu)])
+            for k in range(cfg.fuse_blocks):
+                y = self._block(y, f"fuse.{k}")
+        out = self._conv(self._local(y, lambda p: p.to(torch.float32)), "head")
+        preds = []
+        for i, row in enumerate(out.parts):
+            dev = self.devices[i, 0]
+            head = torch.cat([to_device(p, dev) for p in row], dim=1) if out.split else row[0]
+            head = head.permute(0, 2, 3, 1)
+            if s2d > 1:
+                n, hh, ww, _ = head.shape
+                head = (
+                    head.reshape(n, hh, ww, s2d, s2d, 1)
+                    .permute(0, 1, 3, 2, 4, 5)
+                    .reshape(n, hh * s2d, ww * s2d, 1)
+                )
+            preds.append(head.to(torch.float32))
+        return preds
+
+
+def forward_train_mesh(
+    cfg: ResUNetConfig,
+    tensors: np.ndarray,
+    split,
+    devices: np.ndarray,
+    depth_lr: list,
+    dem_hr: list,
+    precision=None,
+) -> tuple[list[torch.Tensor], dict[str, list[torch.Tensor]]]:
+    """:meth:`ResUNet.forward_train` over a ``(dp, tp)`` mesh of ``devices``.
+
+    Row ``i`` runs its ``dp`` shard of the batch (``depth_lr[i][j]``,
+    ``dem_hr[i][j]``: NHWC, on entry ``(i, j)``'s device) and every batch
+    norm normalizes by the statistics of the global batch
+    (:func:`batch_norm_across`, for each channel piece over the rows of its
+    ``tp`` column). Entry ``(i, j)`` holds ``tensors[i, j]``, its parameters
+    and running stats by ``state_dict`` key: the keys in ``split`` as their
+    ``tp`` piece ``j`` along dimension 0 (a convolution's output channels, a
+    vector's only dimension), the others whole. A split convolution computes
+    output piece ``j`` on entry ``(i, j)`` from its whole input, transposed
+    convolutions included; a split batch norm normalizes that piece; the row
+    gathers the pieces (:func:`all_gather`) where a convolution or a
+    concatenation takes every channel. A leaf held whole is computed alike on
+    each entry of the row, from the entry's own copy. The autograd graph spans
+    the devices, so a backward gives each copy of a leaf its share of the
+    gradient: the leaf's gradient is the sum over its copies.
+
+    Returns ``(preds, new_stats)``: each row's ``[n_i,H,W,1]`` f32 prediction
+    on its first entry's device, and each running stat's new value
+    (``momentum·old + (1 − momentum)·batch``) per ``tp`` column, on the
+    column's first device (whole, for a stat held whole).
+    """
+    run = _MeshForward(cfg, tensors, split, devices, resolve_precision_policy(precision))
+    for row_depth, row_dem in zip(depth_lr, dem_hr):
+        check_inputs(cfg, row_depth[0], row_dem[0])
+    with torch.enable_grad():
+        preds = run.tail(run.trunk(depth_lr, dem_hr), dem_hr)
+    return preds, run.stats

@@ -1,4 +1,4 @@
-"""The device mesh and host→device streaming of the port."""
+"""The device mesh of the port (``mesh``) and host→device streaming (``streaming``)."""
 
 from floodsr_tpu_torch.parallel.mesh import (
     batch_sharding,
@@ -6,12 +6,10 @@ from floodsr_tpu_torch.parallel.mesh import (
     param_sharding_rules,
     replicated_sharding,
 )
-from floodsr_tpu_torch.parallel.streaming import prefetch_to_device
 
 __all__ = [
     "make_mesh",
     "batch_sharding",
     "replicated_sharding",
     "param_sharding_rules",
-    "prefetch_to_device",
 ]

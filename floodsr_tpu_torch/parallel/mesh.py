@@ -20,7 +20,13 @@ CLI or the one-thread daemon (``serve.py::TohrService``) has. So:
   orders a copy between two CUDA devices by events on both devices' current
   streams, so no host synchronization is made per chunk;
 - the convergence ``psum`` becomes a sum of per-band flags on one device
-  (:func:`any_across`), read once per block by the caller.
+  (:func:`any_across`), read once per block by the caller;
+- training's reductions are :func:`psum` (a sum of per-device pieces on one
+  device) followed by :func:`broadcast`, and :func:`all_gather` concatenates
+  the ``tp`` pieces of an activation on each device of a row. All three are
+  made of ``Tensor.to``, ``+`` and ``torch.cat``, which autograd
+  differentiates across devices: the backward of a broadcast is a ``psum``,
+  that of an all-gather the slice of each piece summed over its receivers.
 """
 
 from __future__ import annotations
@@ -277,11 +283,12 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     Between two CUDA devices torch records an event on each device's current
     stream and makes the other wait on it, before and after the copy: the
     receiving stream is ordered after the sender's work with no host
-    synchronization.
+    synchronization. A copy to the CPU blocks until its data is there (a
+    non-blocking one may return before it is).
     """
     if t.device == device:
         return t
-    return t.to(device, non_blocking=True)
+    return t.to(device, non_blocking=device.type == "cuda")
 
 
 def ppermute(bufs: list[torch.Tensor], perm: list[tuple[int, int]]) -> list[torch.Tensor]:
@@ -308,3 +315,37 @@ def any_across(flags: list[torch.Tensor], device: torch.device) -> torch.Tensor:
 def gather_to(pieces: list[torch.Tensor], device: torch.device, dim: int = 0) -> torch.Tensor:
     """Concatenate per-device pieces along ``dim`` on one device."""
     return torch.cat([to_device(p, device) for p in pieces], dim=dim)
+
+
+def psum(pieces: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """``jax.lax.psum`` of per-device pieces, as one tensor on ``device``.
+
+    The pieces are added in the order given, the first one moved first.
+    """
+    total = to_device(pieces[0], device)
+    for p in pieces[1:]:
+        total = total + to_device(p, device)
+    return total
+
+
+def broadcast(t: torch.Tensor, devices: list[torch.device]) -> list[torch.Tensor]:
+    """``t`` on each of ``devices``: one copy per distinct device, shared by
+    the entries that repeat it (``t`` itself on its own device)."""
+    copies: dict = {}
+    for d in devices:
+        if d not in copies:
+            copies[d] = to_device(t, d)
+    return [copies[d] for d in devices]
+
+
+def all_gather(pieces: list[torch.Tensor], dim: int = 1) -> list[torch.Tensor]:
+    """``jax.lax.all_gather(tiled=True)`` over a row's per-device pieces: the
+    concatenation along ``dim`` on each piece's device, made once per distinct
+    device and shared by the entries that repeat it."""
+    full: dict = {}
+    out = []
+    for p in pieces:
+        if p.device not in full:
+            full[p.device] = torch.cat([to_device(q, p.device) for q in pieces], dim=dim)
+        out.append(full[p.device])
+    return out

@@ -34,6 +34,7 @@ from floodsr_tpu.train import trainer as tj
 from floodsr_tpu_torch.nn.checkpoint import params_from_jax, params_to_jax, save_artifact
 from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig
 from floodsr_tpu_torch.ops.kernels.hr_tail import hr_tail, pack_hr_tail_weights
+from floodsr_tpu_torch.parallel.mesh import make_mesh
 from floodsr_tpu_torch.train import trainer as tt
 
 pytestmark = pytest.mark.unit
@@ -229,8 +230,19 @@ def test_inference_builds_no_graph_and_training_entry_points_need_cuda_or_cpu():
             tt.init_train_state(0, ResUNetConfig(**TINY), tt.TrainConfig())
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tt.stage_dataset_to_device(None, [])
+    # mesh=, as in the JAX package: a mesh of the CPU runs the steps there; the
+    # default mesh is the GPUs'; anything else is refused when the step is built
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh()
+    mesh = make_mesh(devices=[torch.device("cpu")] * 3)
+    state = tt.init_train_state(0, ResUNetConfig(**TINY), tt.TrainConfig(), device="cpu")
+    batch = _batch(TINY)
     for make in (tt.make_train_step, tt.make_eval_step):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        out = make(ResUNetConfig(**TINY), tt.TrainConfig(), mesh=mesh)(state, batch)
+        metrics = out[1] if make is tt.make_train_step else out
+        assert all(v.device.type == "cpu" and np.isfinite(float(v)) for v in metrics.values())
+        with pytest.raises(TypeError, match="Mesh"):
             make(ResUNetConfig(**TINY), tt.TrainConfig(), mesh=object())
 
 
