@@ -68,6 +68,17 @@ Phases (any failure raises and exits non-zero; none is caught):
 14. cli — child processes ``python3 -m floodsr_tpu_torch.cli doctor`` and
     ``... cli tohr --in a.tif b.tif --dem dem.tif --out <dir>`` at 1024²,
     exit code 0 each, the files equal to ``tohr``'s;
+    gate — ``python3 bin/parity_gate_torch.py --out <tmp>`` as a child
+    process: exit 0, every ``tests/data/synth_*`` case, ``synth_mersch@hard``
+    and ``synth_mersch@pack12`` within 1e-3 m RMSE of the same ``tohr`` on the
+    CPU, the banded row passing, the card named in the result;
+    bench — ``python3 bench_torch.py`` as a child process with
+    ``FLOODSR_BENCH_REPEATS=2 FLOODSR_BENCH_STREAM_SCENES=2
+    FLOODSR_BENCH_PARITY=0`` (the gate ran just before): exit 0, a last line
+    with every key of ``bench_torch.PAYLOAD_KEYS`` and every rate above 0; K1
+    and K2 launches read from the run lines of its stderr (a flagship
+    scene's, K1 on the tensor-core route; the ``bfloat16`` run's on the bf16
+    route);
     mesh — the multi-GPU paths on the one card: the 4096² flagship scene
     through ``tohr`` banded over ``make_mesh(devices=[cuda:0] * 4)`` and over
     ``parse_mesh_spec("auto")``, and replicated over ``[cuda:0] * 4`` (each
@@ -125,7 +136,8 @@ Phases (any failure raises and exits non-zero; none is caught):
     machine has them. Four entries share one card: the times read the mesh's
     overheads, not a speed-up. One ``{"train_mesh": ...}`` JSON line;
 20. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval`` and
-    ``launches_train_mesh_eval``; each kernel with ``launches_mesh``), the
+    ``launches_train_mesh_eval``; each kernel with ``launches_mesh``; K1, its
+    bf16 route and K2 with ``launches_bench``), the
     card's name and power limit, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
@@ -1670,6 +1682,108 @@ def phase_cli(torch, seed: int, tmp: Path) -> None:
     )
 
 
+def free_card_for_child(torch, what: str) -> None:
+    """Hand this process's cached device memory back before a child process
+    that measures the card, and log what the card holds then."""
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[{what}] this process had {reserved / 2**20:.0f} MiB reserved; the card holds {used} "
+        "after empty_cache")
+
+
+def phase_gate(torch, tmp: Path) -> dict:
+    """``bin/parity_gate_torch.py`` as a child process: exit 0, every row passing."""
+    free_card_for_child(torch, "gate")
+    out = tmp / "parity_gate_torch.json"
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(ROOT / "bin" / "parity_gate_torch.py"), "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+    )
+    wall_s = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(
+            f"parity_gate_torch: exit code {done.returncode}\n{done.stdout[-3000:]}\n"
+            f"{done.stderr[-5000:]}"
+        )
+    result = json.loads(out.read_text())
+    want = {d.name for d in DATA.iterdir() if (d / "case_spec.json").exists()}
+    want |= {"synth_mersch@hard", "synth_mersch@pack12"}
+    if set(result["cases"]) != want:
+        raise AssertionError(f"parity_gate_torch ran {sorted(result['cases'])}, expected {sorted(want)}")
+    failed = [label for label, row in result["cases"].items() if not row["pass"]]
+    if failed or not result["banded_vs_replicated"]["pass"] or not result["pass"]:
+        raise AssertionError(f"parity_gate_torch: rows over the bar: {failed} {result}")
+    if not result["device"]["name"]:
+        raise AssertionError(f"parity_gate_torch names no card: {result['device']}")
+    for label, row in {**result["cases"], "banded_vs_replicated": result["banded_vs_replicated"]}.items():
+        log(f"[gate] {label}: {json.dumps(row)}")
+    log(f"[gate] exit 0 in {wall_s:.1f} s, every row within {result['gate_rmse_m']} m RMSE "
+        f"on {result['device']}")
+    return result
+
+
+def run_line_launches(stderr: str, run: str) -> tuple[dict, dict]:
+    """The kernels' launches and routes a ``# run <run>: ...`` line of the bench printed."""
+    found = re.findall(
+        rf"^# run {run}: .* launches (\{{.*?\}}) routes (\{{.*\}})\)?$", stderr, re.MULTILINE
+    )
+    if not found:
+        raise AssertionError(f"bench_torch printed no launches for run {run}:\n{stderr[-3000:]}")
+    launches, routes = found[-1]
+    return json.loads(launches), json.loads(routes)
+
+
+def phase_bench(torch, tmp: Path) -> dict:
+    """``bench_torch.py`` as a child process at 2 repeats and a stream of 2:
+    exit 0 and a full last line; K1's and K2's launches from its run lines."""
+    import bench_torch
+
+    free_card_for_child(torch, "bench")
+    env = dict(
+        os.environ, FLOODSR_BENCH_REPEATS="2", FLOODSR_BENCH_STREAM_SCENES="2",
+        FLOODSR_BENCH_PARITY="0", TMPDIR=str(tmp),
+    )
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, str(ROOT / "bench_torch.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
+    )
+    wall_s = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(
+            f"bench_torch: exit code {done.returncode}\n{done.stdout[-3000:]}\n{done.stderr[-5000:]}"
+        )
+    for line in done.stderr.splitlines():
+        if line.startswith("# "):
+            log(f"[bench] {line[2:]}")
+    payload = json.loads(done.stdout.strip().splitlines()[-1])
+    missing = [k for k in bench_torch.PAYLOAD_KEYS if k not in payload]
+    if missing:
+        raise AssertionError(f"bench_torch's line lacks {missing}")
+    rates = [k for k in payload if k.endswith(("_mps", "_per_s")) or k == "value"]
+    if not all(payload[k] > 0 for k in rates):
+        raise AssertionError(f"bench_torch: a rate is not above 0: {payload}")
+    f32, f32_routes = run_line_launches(done.stderr, "1")
+    bf16, bf16_routes = run_line_launches(done.stderr, "bfloat16")
+    if not (f32["tile_stats"] > 0 and f32["hr_tail"] == f32_routes["hr_tail"]["tensor"] > 0):
+        raise AssertionError(f"bench_torch's flagship scene: K1/K2 launches {f32} {f32_routes}")
+    if not bf16["hr_tail"] == bf16_routes["hr_tail"]["bf16"] > 0:
+        raise AssertionError(f"bench_torch's bfloat16 scene: K1 launches {bf16} {bf16_routes}")
+    log(f"[bench] exit 0 in {wall_s:.1f} s; K2 {f32['tile_stats']} and K1 {f32['hr_tail']} "
+        f"launches a flagship scene, K1's bf16 route {bf16['hr_tail']} a bfloat16 scene")
+    log(f"[bench] {json.dumps(payload)}")
+    return {
+        "payload": payload,
+        "launches": {**f32, "hr_tail_bf16": bf16["hr_tail"]},
+        "wall_s": wall_s,
+    }
+
+
 # ---------------------------------------------------------------------------
 # precision policies, the finish stage, the ONNX path
 # ---------------------------------------------------------------------------
@@ -2785,6 +2899,8 @@ def main(argv=None) -> int:
         stream = phase_stream(torch, args.seed, SCENE_SIZE, tmp)
         serve = phase_serve(torch, args.seed, SCENE_SIZE, tmp, stream)
         phase_cli(torch, args.seed, tmp)
+        phase_gate(torch, tmp)
+        bench = phase_bench(torch, tmp)
         mesh = phase_mesh(torch, args.seed, SCENE_SIZE, tmp, device["smi"])
         policies = phase_policies(torch, args.seed, SCENE_SIZE, tmp, args.profile)
         phase_finish(torch, args.seed, SCENE_SIZE, tmp)
@@ -2817,6 +2933,10 @@ def main(argv=None) -> int:
     if not k1_bf16["launches"] > 0:
         raise AssertionError(f"hr_tail's bf16 route was not launched by the bfloat16 scene: {k1_bf16}")
     kernels.insert(2, k1_bf16)
+    # a flagship scene of bench_torch.py (its bfloat16 scene for the bf16 route)
+    for k in kernels:
+        if k["name"] != "relax_step":
+            k["launches_bench"] = bench["launches"][k["name"]]
     # K1 in the training path's eval step (the train step itself runs unfused)
     k1["launches_train_eval"], k1["train_eval_ms"] = train["k1_launches_eval"], train["k1_eval_ms"]
     # and once per dp row in the sharded eval step of each mesh

@@ -7,6 +7,8 @@ asks for it (``device="cpu"``), as the CPU test suite does.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -41,3 +43,20 @@ def set_strict_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def card_info(device: "str | torch.device") -> dict:
+    """``{"name", "power_limit"}`` of the card behind ``device``, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
+    them (the limit with its unit, e.g. ``"700.00 W"``); for the CPU, the
+    device's name and ``None``.
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return {"name": str(dev), "power_limit": None}
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    name, limit = lines[min(dev.index, len(lines) - 1)].rsplit(",", 1)
+    return {"name": name.strip(), "power_limit": limit.strip()}

@@ -151,6 +151,10 @@ class EngineTorch(EngineBase):
         # copy there); {self.device: self._forward} without a mesh
         self._replicas: dict[torch.device, Any] = {}
         self.last_scene_timings: dict[str, float] = {}
+        # The keyword arguments of the last run_scene's geometry (crop_shape,
+        # stride_hr, overlap_hr, max_depth, dem_pct_clip, tile_lr): what
+        # scene_executor takes to build that scene's executor again.
+        self.last_scene_args: dict[str, Any] = {}
         self.load()
 
     # -- lifecycle ----------------------------------------------------------
@@ -448,10 +452,16 @@ class EngineTorch(EngineBase):
         assert self._forward is not None and self.config is not None, (
             "engine must be loaded before inference"
         )
-        cfg = self.scene_config(tile_lr)
-        tile, scale = cfg.hr_tile, cfg.scale
         crop_h, crop_w = int(crop_shape[0]), int(crop_shape[1])
         self.last_scene_timings = {}
+        self.last_scene_args = {
+            "crop_shape": (crop_h, crop_w),
+            "stride_hr": int(stride_hr),
+            "overlap_hr": int(overlap_hr),
+            "max_depth": float(max_depth),
+            "dem_pct_clip": float(dem_pct_clip),
+            "tile_lr": tile_lr,
+        }
         if self.mesh is not None and self.scene_mode == "banded":
             return self._run_scene_banded(
                 depth_raw, dem_raw,
@@ -461,30 +471,8 @@ class EngineTorch(EngineBase):
                 low_depth_mask_m=low_depth_mask_m, row_sink=row_sink,
                 tile_lr=tile_lr,
             )
-        content = self.content_shape((crop_h, crop_w), tile_lr)
-        grid = build_window_grid(content[0], content[1], tile, int(stride_hr))
-        if int(overlap_hr) == 0:
-            validate_hard_grid(grid, tile)
-        n = len(grid["y0"])
-        idx = scene_indices(grid)
-        executor = SceneExecutor(
-            self.model,
-            cfg=cfg,
-            scene_shape=content,
-            overlap_hr=int(overlap_hr),
-            max_depth=float(max_depth),
-            dem_pct_clip=float(dem_pct_clip),
-            chunk=self.scene_chunk,
-            trunk_chunk=self.scene_trunk_chunk,
-            transfer_dtype=self._scene_transfer_dtype,
-            precision=self._stage_dtypes,
-            # only the native ResUNet splits into trunk and tail; a graph
-            # runs whole, one forward per chunk
-            forward_fn=None if self.model is not None else self._forward,
-            mesh=self.mesh,
-            batch_axis=self.batch_axis,
-            replicas=self._replicas,
-        )
+        scale = self.scene_config(tile_lr).scale
+        executor, idx, content, n = self.scene_executor(**self.last_scene_args)
 
         t0 = time.perf_counter()
         depth_dev = self._put_padded(depth_raw, (content[0] // scale, content[1] // scale))
@@ -511,6 +499,52 @@ class EngineTorch(EngineBase):
             "dem_min": stats_np[:, 1],
             "dem_max": stats_np[:, 2],
         }
+
+    def scene_executor(
+        self,
+        crop_shape: tuple[int, int],
+        *,
+        stride_hr: int,
+        overlap_hr: int,
+        max_depth: float,
+        dem_pct_clip: float,
+        tile_lr: "int | None" = None,
+    ) -> tuple[SceneExecutor, dict[str, np.ndarray], tuple[int, int], int]:
+        """The scene executor :meth:`run_scene` runs for ``crop_shape`` (not
+        banded): ``(executor, idx, content, n_windows)``.
+
+        ``content`` is the crop padded to whole tiles, ``idx`` the
+        :func:`~floodsr_tpu_torch.engine.scene.scene_indices` of its window
+        grid and ``n_windows`` that grid's window count. ``executor(depth,
+        dem, idx)`` takes the depth and DEM zero-padded to ``content // scale``
+        and ``content`` on the engine's device (as :meth:`_put_padded` puts
+        them) and returns ``(scene_out, stats)``.
+        """
+        cfg = self.scene_config(tile_lr)
+        tile = cfg.hr_tile
+        content = self.content_shape((int(crop_shape[0]), int(crop_shape[1])), tile_lr)
+        grid = build_window_grid(content[0], content[1], tile, int(stride_hr))
+        if int(overlap_hr) == 0:
+            validate_hard_grid(grid, tile)
+        executor = SceneExecutor(
+            self.model,
+            cfg=cfg,
+            scene_shape=content,
+            overlap_hr=int(overlap_hr),
+            max_depth=float(max_depth),
+            dem_pct_clip=float(dem_pct_clip),
+            chunk=self.scene_chunk,
+            trunk_chunk=self.scene_trunk_chunk,
+            transfer_dtype=self._scene_transfer_dtype,
+            precision=self._stage_dtypes,
+            # only the native ResUNet splits into trunk and tail; a graph
+            # runs whole, one forward per chunk
+            forward_fn=None if self.model is not None else self._forward,
+            mesh=self.mesh,
+            batch_axis=self.batch_axis,
+            replicas=self._replicas,
+        )
+        return executor, scene_indices(grid), content, len(grid["y0"])
 
     def _record_timings(self, t0, t1, t2, t3, n: int, scene: tuple[int, int]) -> None:
         self.log.debug(

@@ -152,7 +152,9 @@ def _imported_modules(path: Path) -> list[str]:
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted((ROOT / "floodsr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "floodsr_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "bin" / "parity_gate_torch.py",
+    ]
     assert len(files) > 20
     covered = {str(path.relative_to(ROOT)) for path in files}
     assert {
@@ -180,6 +182,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "floodsr_tpu_torch/train/synth.py",
         "floodsr_tpu_torch/parallel/streaming.py",
         "chip_smoke.py",
+        "bench_torch.py",
+        "bin/parity_gate_torch.py",
     } <= covered
     banned = ("jax", "floodsr_tpu")
     offenders = [
