@@ -68,6 +68,12 @@ Phases (any failure raises and exits non-zero; none is caught):
 14. cli — child processes ``python3 -m floodsr_tpu_torch.cli doctor`` and
     ``... cli tohr --in a.tif b.tif --dem dem.tif --out <dir>`` at 1024²,
     exit code 0 each, the files equal to ``tohr``'s;
+    examples — ``examples/run_tohr_torch.py``, ``serve_scenes_torch.py`` and
+    ``tutorial_torch.py --no-figure`` in-process with ``--device cuda``: K2
+    launched by each, K1 on its tensor-core route in the tutorial and not at
+    all in the two others (their small artifact's one fuse block runs the
+    unfused tail); the tutorial's SR metrics equal to ``case_spec.json``'s at
+    its precision; one ``[examples]`` line with each script's wall time;
     gate — ``python3 bin/parity_gate_torch.py --out <tmp>`` as a child
     process: exit 0, every ``tests/data/synth_*`` case, ``synth_mersch@hard``
     and ``synth_mersch@pack12`` within 1e-3 m RMSE of the same ``tohr`` on the
@@ -137,7 +143,7 @@ Phases (any failure raises and exits non-zero; none is caught):
     overheads, not a speed-up. One ``{"train_mesh": ...}`` JSON line;
 20. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval`` and
     ``launches_train_mesh_eval``; each kernel with ``launches_mesh``; K1, its
-    bf16 route and K2 with ``launches_bench``), the
+    bf16 route and K2 with ``launches_bench`` and ``launches_examples``), the
     card's name and power limit, then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
@@ -1682,6 +1688,71 @@ def phase_cli(torch, seed: int, tmp: Path) -> None:
     )
 
 
+#: The user examples ``phase_examples`` runs, with the route K1 takes in each.
+#: ``run_tohr_torch`` and ``serve_scenes_torch`` build the JAX examples' small
+#: artifact (the same bytes), whose one fuse block runs the unfused tail, as
+#: the JAX package's ``_pallas_tail_eligible`` rules: K1 is not on their path
+#: (``None``). The tutorial runs the flagship artifact: K1's tensor-core route.
+EXAMPLE_K1_ROUTES = {
+    "run_tohr_torch": None,
+    "serve_scenes_torch": None,
+    "tutorial_torch": "tensor",
+}
+
+
+def phase_examples(torch, tmp: Path) -> dict:
+    """The three user examples in-process with ``--device cuda``: K2 launched
+    by each, K1 on the route of ``EXAMPLE_K1_ROUTES`` and on no other; the
+    tutorial's SR row equal to ``case_spec.json``'s metrics at its precision."""
+    import importlib.util
+
+    from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
+
+    report, launches = {}, {}
+    for name, route in EXAMPLE_K1_ROUTES.items():
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        argv = [str(tmp / f"example_{name}"), "--device", "cuda"]
+        if name == "tutorial_torch":
+            argv.append("--no-figure")  # the metrics are what is checked; no figure
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = example.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts, k1 = launch_counts(), route_counts()["hr_tail"]
+        want_k1 = dict.fromkeys(k1, 0)
+        if route is not None:
+            want_k1[route] = counts["hr_tail"]
+        if not (counts["tile_stats"] > 0 and k1 == want_k1 and sum(k1.values()) == counts["hr_tail"]
+                and (route is None or counts["hr_tail"] > 0)):
+            raise AssertionError(
+                f"example {name}: tile_stats {counts['tile_stats']}, hr_tail by route {k1} "
+                f"(expected K2 launched and K1 on route {route!r} only)"
+            )
+        if name == "tutorial_torch":
+            case = json.loads((DATA / "synth_flagship" / "case_spec.json").read_text())
+            want = case["expected"]["ResUNet_16x_DEM_default"]["metrics"]
+            precision = int(want["precision"])
+            got = {
+                k: round(float(result["FloodSR SR"][k]), precision)
+                for k in ("mase_m", "rmse_m", "ssim")
+            }
+            if got != {k: round(float(want[k]), precision) for k in got}:
+                raise AssertionError(f"example {name}: SR metrics {got}, case_spec.json {want}")
+        elif result != 0:
+            raise AssertionError(f"example {name}: main returned {result}")
+        report[name] = {"wall_s": wall_s, "launches": counts, "hr_tail_by_route": k1}
+        launches[name] = {**counts, "hr_tail_bf16": k1["bf16"]}
+    log(f"[examples] {json.dumps(report)}")
+    return {
+        kernel: sum(run[kernel] for run in launches.values())
+        for kernel in ("tile_stats", "hr_tail", "hr_tail_bf16")
+    }
+
+
 def free_card_for_child(torch, what: str) -> None:
     """Hand this process's cached device memory back before a child process
     that measures the card, and log what the card holds then."""
@@ -1788,14 +1859,21 @@ def phase_bench(torch, tmp: Path) -> dict:
 # precision policies, the finish stage, the ONNX path
 # ---------------------------------------------------------------------------
 
-#: Ceiling on the RMSE of a bf16 or mixed scene against the f32 scene, in
-#: metres (10% of max_depth). The JAX package's docstring puts both policies
-#: above its 1e-3 m parity gate with trained weights; the flagship artifact
-#: here is randomly initialised, its features reach 1e4 and its output
-#: saturates between 0 and max_depth, so a bf16 rounding in the trunk moves
-#: single pixels across the whole range. This only catches a broken policy;
-#: the arithmetic itself is held against the JAX package by the CPU tests.
-POLICY_RMSE_CEILING_M = 0.5
+#: Ceiling on the RMSE of a bf16 or mixed scene against the f32 scene of the
+#: same seed, in metres, by policy. The flagship artifact is trained (50,000
+#: steps, tests/data/synth_flagship/readme.md), but this scene's random-walk
+#: DEM lies outside its training family: under either policy, in either
+#: package, single pixels move by the whole of max_depth. The JAX package's
+#: own distance on this scene (scene_inputs(tmp, 0, 4096, tag="_policy"), the
+#: flagship artifact, floodsr_tpu.tohr.tohr with engine_options
+#: {"compute_dtype": ...} against "float32", on the CPU; measured by
+#: ``JAX_PLATFORMS=cpu python tests/flagship_rounding_study.py --policies``):
+#: bfloat16 0.3211 m, mixed 0.2028 m RMSE (the port's on the CPU: 0.2547 /
+#: 0.2041 m). Each ceiling is at most twice the JAX package's distance: mixed
+#: 0.4; bfloat16 keeps the earlier 0.5, under its 0.642. This only catches a
+#: broken policy; the arithmetic itself is held against the JAX package by the
+#: CPU tests.
+POLICY_RMSE_CEILING_M = {"bfloat16": 0.5, "mixed": 0.4}
 
 
 def rmse_m(a: np.ndarray, b: np.ndarray) -> float:
@@ -1886,14 +1964,14 @@ def phase_mesh(torch, seed: int, size: int, tmp: Path, card: str) -> dict:
     ``[cuda:0] * 4``, a wide scene on the column path, the banded CostGrow
     fill, and ``tohr --mesh auto --scene-mode banded`` as a child process.
 
-    cuDNN picks a convolution algorithm by batch size, and this randomly
-    initialised artifact (features near 1e4, an output that saturates)
-    carries the change of algorithm to the output: the plain path run at
-    another batch width moves its own raster by up to 1.7e-2 m. So the
-    numbers are read at the default widths (what a user runs), and the
-    holds run every path at one batch width (``MESH_WIDTH``), where a tile's
-    prediction is the same bits in every path and only the sums at a seam
-    differ."""
+    cuDNN picks a convolution algorithm by batch size, and the flagship
+    artifact (trained, but on this random-walk DEM outside its training
+    family, where single pixels saturate) carries the change of algorithm
+    to the output: the plain path run at another batch width moves its own
+    raster by up to 1.7e-2 m. So the numbers are read at the default widths
+    (what a user runs), and the holds run every path at one batch width
+    (``MESH_WIDTH``), where a tile's prediction is the same bits in every
+    path and only the sums at a seam differ."""
     from floodsr_tpu_torch.engine import EngineTorch
     from floodsr_tpu_torch.io import read_raster
     from floodsr_tpu_torch.ops import costgrow
@@ -2129,9 +2207,10 @@ def phase_policies(torch, seed: int, size: int, tmp: Path, with_profile: bool = 
                 f"tile_stats {run['counts']['tile_stats']} (expected {SCENE_K2_LAUNCHES})"
             )
         err = rmse_m(run["pred"], runs["float32"]["pred"])
-        if dtype != "float32" and not 0.0 < err <= POLICY_RMSE_CEILING_M:
+        if dtype != "float32" and not 0.0 < err <= POLICY_RMSE_CEILING_M[dtype]:
             raise AssertionError(
-                f"{dtype} scene: RMSE {err} m against the f32 scene, ceiling {POLICY_RMSE_CEILING_M}"
+                f"{dtype} scene: RMSE {err} m against the f32 scene, "
+                f"ceiling {POLICY_RMSE_CEILING_M[dtype]}"
             )
         out[dtype] = {
             "e2e_s": run["e2e_s"], "exec_s": run["timings"]["exec_s"],
@@ -2150,8 +2229,10 @@ def policies_card_vs_cpu(tmp: Path) -> None:
     On the card a bf16 stage's products run as TF32 on the tensor cores, on the
     CPU as f32: both exact for bf16 values, so the two differ only by flipped
     bf16 roundings (f32 sums in another order). Held to a quarter of the
-    policy's own distance to f32, on the trained test artifact (the flagship's
-    random weights amplify a single flip across the whole range).
+    policy's own distance to f32, on the trained test artifact and one of its
+    cases (on the flagship scene's random-walk DEM, outside the flagship
+    artifact's training family, a single flip can move a pixel across the
+    whole range).
     """
     from floodsr_tpu_torch.io import read_raster
     from floodsr_tpu_torch.tohr import tohr
@@ -2899,6 +2980,7 @@ def main(argv=None) -> int:
         stream = phase_stream(torch, args.seed, SCENE_SIZE, tmp)
         serve = phase_serve(torch, args.seed, SCENE_SIZE, tmp, stream)
         phase_cli(torch, args.seed, tmp)
+        examples = phase_examples(torch, tmp)
         phase_gate(torch, tmp)
         bench = phase_bench(torch, tmp)
         mesh = phase_mesh(torch, args.seed, SCENE_SIZE, tmp, device["smi"])
@@ -2933,10 +3015,12 @@ def main(argv=None) -> int:
     if not k1_bf16["launches"] > 0:
         raise AssertionError(f"hr_tail's bf16 route was not launched by the bfloat16 scene: {k1_bf16}")
     kernels.insert(2, k1_bf16)
-    # a flagship scene of bench_torch.py (its bfloat16 scene for the bf16 route)
+    # a flagship scene of bench_torch.py (its bfloat16 scene for the bf16 route);
+    # the three user examples together (K1 in the tutorial only)
     for k in kernels:
         if k["name"] != "relax_step":
             k["launches_bench"] = bench["launches"][k["name"]]
+            k["launches_examples"] = examples[k["name"]]
     # K1 in the training path's eval step (the train step itself runs unfused)
     k1["launches_train_eval"], k1["train_eval_ms"] = train["k1_launches_eval"], train["k1_eval_ms"]
     # and once per dp row in the sharded eval step of each mesh

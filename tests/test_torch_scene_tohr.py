@@ -113,7 +113,22 @@ def _case(name):
     return case_dir, spec, model_fp
 
 
-@pytest.mark.parametrize("case", ["synth_single_tile", "synth_mersch", "synth_dudelange"])
+# synth_flagship (the full-width trained artifact) at one pixel: two of its
+# nine tiles carry trunk features up to 2.5e3 and fuse-block activations up to
+# 5.4e3 (~25 elsewhere), where f32 rounding at that magnitude, amplified by the
+# head and the log1p inverse, moves a pixel by millimetres. Against a float64
+# evaluation of the same network on the same inputs the JAX package's scene
+# sits up to 1.10e-3 m off and the port's (oneDNN's convolutions, ~2x the
+# rounding of XLA's at those magnitudes) up to 3.19e-3 m
+# (tests/flagship_rounding_study.py); so the two may sit up to their sum,
+# 4.3e-3 m, apart at any pixel (3.43e-3 m measured), and at most 0.1% of the
+# pixels over 2e-4 m (86 of 1,048,576 measured).
+FLAGSHIP_MAX_ABS_M = 5e-3
+
+
+@pytest.mark.parametrize(
+    "case", ["synth_single_tile", "synth_mersch", "synth_dudelange", "synth_flagship"]
+)
 def test_tohr_matches_jax_tohr_and_case_metrics(case, tmp_path):
     case_dir, spec, model_fp = _case(case)
     truth_raw, truth_nodata, _ = read_raster(case_dir / spec["inputs"]["truth_fp"])
@@ -134,6 +149,9 @@ def test_tohr_matches_jax_tohr_and_case_metrics(case, tmp_path):
         # Both quantize to uint16 codes of 7.6e-5 m; f32 sums in another
         # order move a few codes by one, far inside 1e-4 m RMSE.
         assert float(np.sqrt(np.mean((pred_t - pred_j) ** 2))) <= 1e-4
+        if case == "synth_flagship":
+            d = np.abs(pred_t.astype(np.float64) - pred_j)
+            assert d.max() <= FLAGSHIP_MAX_ABS_M and (d > 2e-4).sum() <= 1e-3 * d.size
         metrics = compute_depth_error_metrics(truth, pred_t, max_depth=MAX_DEPTH)
         precision = int(run["metrics"].get("precision", 3))
         got = {k: round(float(metrics[k]), precision) for k in ("mase_m", "rmse_m", "ssim")}
@@ -154,7 +172,8 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "floodsr_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "bin" / "parity_gate_torch.py",
-    ]
+        ROOT / "docs" / "scripts" / "build_cli_reference_torch.py",
+    ] + sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 20
     covered = {str(path.relative_to(ROOT)) for path in files}
     assert {
@@ -184,6 +203,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "chip_smoke.py",
         "bench_torch.py",
         "bin/parity_gate_torch.py",
+        "docs/scripts/build_cli_reference_torch.py",
+        "examples/train_model_torch.py",
+        "examples/run_tohr_torch.py",
+        "examples/serve_scenes_torch.py",
+        "examples/tutorial_torch.py",
     } <= covered
     banned = ("jax", "floodsr_tpu")
     offenders = [
