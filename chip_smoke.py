@@ -24,6 +24,20 @@ Phases (any failure raises and exits non-zero; none is caught):
    launches' device times (traced) and ``-Xptxas -v`` lines, and the direct
    bf16 route at the narrow test artifact's widths, timed beside the cuDNN
    chain in bf16;
+   hr_tail layouts — K1 at the JAX package's other two HR layouts
+   (``hr_s2d`` 2: 64 + 32 -> 64 -> 4 on 256² tiles; 1: 32 + 32 -> 32 -> 1 on
+   512²), weights from ``init_resunet(--seed)``, 8 tiles: the direct f32 and
+   bf16 routes, the plain versions and both cuDNN chains held and timed
+   first (what these widths ran before), then both tensor-core routes
+   against their plain versions at 8 tiles and 1, timed and traced by
+   launch, with the bounds and each route's own device-memory traffic; the
+   new instantiations' ``-Xptxas -v`` lines; then ``tohr`` on a 1024² scene
+   (9 tiles) with an artifact of each layout (``init_resunet`` +
+   ``save_artifact``) under ``float32`` and ``bfloat16``: K1 on the
+   tensor-core route at every call and never direct; f32 against
+   ``device="cpu"`` at 1e-3 m RMSE, bf16 against the same scene on the card
+   with K1 through its plain version (a quarter of the policy's own distance
+   to f32), its distance to ``device="cpu"`` logged;
 5. ``tohr`` on every ``tests/data/synth_*`` case, metrics equal to
    ``case_spec.json`` at its precision; K2 launched on every case, K1 on
    ``synth_flagship`` (its tensor-core route); ``depth_metrics_torch`` on the
@@ -143,8 +157,11 @@ Phases (any failure raises and exits non-zero; none is caught):
     overheads, not a speed-up. One ``{"train_mesh": ...}`` JSON line;
 20. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval`` and
     ``launches_train_mesh_eval``; each kernel with ``launches_mesh``; K1, its
-    bf16 route and K2 with ``launches_bench`` and ``launches_examples``), the
-    card's name and power limit, then the ``{"ok": true, ...}`` line last.
+    bf16 route and K2 with ``launches_bench`` and ``launches_examples``; K1
+    and its bf16 route with ``layouts``, an entry per instantiated (Cm, Ch)
+    beside the flagship's: ms, bound, plain, library and direct-route ms and
+    the launches of that layout's scene), the card's name and power limit,
+    then the ``{"ok": true, ...}`` line last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -339,8 +356,6 @@ def phase_tile_stats(torch, rng) -> dict:
 
 
 def phase_hr_tail(torch, rng) -> list[dict]:
-    import torch.nn.functional as F
-
     from floodsr_tpu_torch.engine import EngineTorch
     from floodsr_tpu_torch.ops.kernels import hr_tail as ht
     from floodsr_tpu_torch.ops.kernels import reset_launch_counts
@@ -382,25 +397,7 @@ def phase_hr_tail(torch, rng) -> list[dict]:
     direct_ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="direct"), reps=5)
     plain_ms = time_ms(torch, lambda: ht.hr_tail_reference(sr, dem, *weights), reps=10)
 
-    # Library yardstick: the same chain of cuDNN convolutions on NCHW inputs
-    # (no layout changes), TF32 off.
-    w = dict(zip(ht.WEIGHT_KEYS, weights))
-    oihw = {k: (v.permute(3, 2, 0, 1).contiguous() if v.ndim == 4 else v.t()[:, :, None, None].contiguous())
-            for k, v in w.items() if k.endswith(("_w1", "_w2", "_pw", "head_w"))}
-    x_nchw = torch.cat([sr, dem], dim=-1).permute(0, 3, 1, 2).contiguous()
-
-    def cudnn_chain():
-        def ar(v, a, c):
-            return torch.relu(v * a[None, :, None, None] + c[None, :, None, None])
-
-        y = F.conv2d(ar(x_nchw, w["f1_a1"], w["f1_c1"]), oihw["f1_w1"], w["f1_b1"], padding=1)
-        y = F.conv2d(ar(y, w["f1_a2"], w["f1_c2"]), oihw["f1_w2"], w["f1_b2"], padding=1)
-        y1 = y + F.conv2d(x_nchw, oihw["f1_pw"], w["f1_pb"])
-        y = F.conv2d(ar(y1, w["f2_a1"], w["f2_c1"]), oihw["f2_w1"], w["f2_b1"], padding=1)
-        y = F.conv2d(ar(y, w["f2_a2"], w["f2_c2"]), oihw["f2_w2"], w["f2_b2"], padding=1)
-        return F.conv2d(y + y1, oihw["head_w"], w["head_b"])
-
-    library_ms = time_ms(torch, cudnn_chain, reps=10)
+    library_ms = time_ms(torch, cudnn_tail_chain(torch, ht, weights, sr, dem, torch.float32), reps=10)
     cin, cm, ch = ca + cb, ca, cfg.hr_s2d ** 2
     macs = b * hw * hw * (9 * cin * cm + 3 * 9 * cm * cm + cin * cm + cm * ch)
     nbytes = (sr.numel() + dem.numel() + got.numel() + sum(t.numel() for t in weights)) * 4
@@ -421,7 +418,7 @@ def phase_hr_tail(torch, rng) -> list[dict]:
         f"{f32_bound_ms:.3f} ms (f32 on the CUDA cores, the direct route's bound) and "
         f"{one_product_ms:.3f} ms (one TF32 product); at one tile {bound_ms / b:.4f} ms"
     )
-    bf16 = hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes)
+    bf16 = hr_tail_bf16(torch, rng, ht, sr, dem, weights, macs, nbytes)
     engine.close()
     return [{
         "name": "hr_tail",
@@ -455,10 +452,8 @@ def phase_hr_tail(torch, rng) -> list[dict]:
 BF16_GATE = 1e-2
 
 
-def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -> dict:
+def hr_tail_bf16(torch, rng, ht, sr, dem, weights, macs, nbytes) -> dict:
     """K1's bf16 arithmetic on the card against its plain version, and its times."""
-    import torch.nn.functional as F
-
     from floodsr_tpu_torch.ops.kernels import reset_launch_counts
 
     b = int(sr.shape[0])
@@ -515,25 +510,7 @@ def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -
     direct_ms = time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="bf16_direct"), reps=5)
     plain_ms = time_ms(torch, lambda: ht.hr_tail_reference_bf16(sr, dem, *weights), reps=10)
 
-    # Library yardstick: the cuDNN chain on bf16 tensors (bf16 intermediates,
-    # which the kernel does not keep), timed here and used nowhere in the port.
-    w = dict(zip(ht.WEIGHT_KEYS, weights))
-    h = {k: v.to(torch.bfloat16) for k, v in {**w, **oihw}.items()}
-    x16 = x_nchw.to(torch.bfloat16)
-
-    def cudnn_chain_bf16():
-        def ar(v, a, c):
-            return torch.relu(v * a[None, :, None, None] + c[None, :, None, None])
-
-        o = {k: h[k] for k in oihw}
-        y = F.conv2d(ar(x16, h["f1_a1"], h["f1_c1"]), o["f1_w1"], h["f1_b1"], padding=1)
-        y = F.conv2d(ar(y, h["f1_a2"], h["f1_c2"]), o["f1_w2"], h["f1_b2"], padding=1)
-        y1 = y + F.conv2d(x16, o["f1_pw"], h["f1_pb"])
-        y = F.conv2d(ar(y1, h["f2_a1"], h["f2_c1"]), o["f2_w1"], h["f2_b1"], padding=1)
-        y = F.conv2d(ar(y, h["f2_a2"], h["f2_c2"]), o["f2_w2"], h["f2_b2"], padding=1)
-        return F.conv2d((y + y1).float(), oihw["head_w"], w["head_b"])
-
-    library_ms = time_ms(torch, cudnn_chain_bf16, reps=10)
+    library_ms = time_ms(torch, cudnn_tail_chain(torch, ht, weights, sr, dem, torch.bfloat16), reps=10)
     # One bf16 product per MAC on the tensor cores.
     bound_ms, bound_by = bound(nbytes=nbytes, nops=2 * macs, ops_per_s=PEAK_BF16_PER_S)
     # The route's launches, traced over a few calls at 8 tiles and at 1; at
@@ -590,13 +567,329 @@ def hr_tail_bf16(torch, rng, ht, sr, dem, weights, x_nchw, oihw, macs, nbytes) -
     }
 
 
+def cudnn_tail_chain(torch, ht, weights, sr, dem, dtype):
+    """K1's function as a chain of cuDNN convolutions on NCHW inputs (no layout
+    changes): a library yardstick, timed here and used nowhere in the port.
+    ``torch.float32`` runs under the card's strict-f32 setting (TF32 off);
+    ``torch.bfloat16`` on bf16 tensors, with bf16 intermediates (which the
+    kernel does not keep) and the head in f32. Returns the chain as a callable."""
+    import torch.nn.functional as F
+
+    w = dict(zip(ht.WEIGHT_KEYS, weights))
+    oihw = {k: (v.permute(3, 2, 0, 1).contiguous() if v.ndim == 4 else v.t()[:, :, None, None].contiguous())
+            for k, v in w.items() if k.endswith(("_w1", "_w2", "_pw", "head_w"))}
+    h = {k: v.to(dtype) for k, v in {**w, **oihw}.items()}
+    x = torch.cat([sr, dem], dim=-1).permute(0, 3, 1, 2).contiguous().to(dtype)
+
+    def ar(v, a, c):
+        return torch.relu(v * a[None, :, None, None] + c[None, :, None, None])
+
+    def chain():
+        y = F.conv2d(ar(x, h["f1_a1"], h["f1_c1"]), h["f1_w1"], h["f1_b1"], padding=1)
+        y = F.conv2d(ar(y, h["f1_a2"], h["f1_c2"]), h["f1_w2"], h["f1_b2"], padding=1)
+        y1 = y + F.conv2d(x, h["f1_pw"], h["f1_pb"])
+        y = F.conv2d(ar(y1, h["f2_a1"], h["f2_c1"]), h["f2_w1"], h["f2_b1"], padding=1)
+        y = F.conv2d(ar(y, h["f2_a2"], h["f2_c2"]), h["f2_w2"], h["f2_b2"], padding=1)
+        return F.conv2d((y + y1).float(), oihw["head_w"], w["head_b"])
+
+    return chain
+
+
+# ---------------------------------------------------------------------------
+# K1 at the JAX package's other two HR layouts (ResUNetConfig.hr_s2d)
+# ---------------------------------------------------------------------------
+
+#: hr_s2d of the layouts beside the flagship's 4, at the flagship's other
+#: widths: 2 (round 1's artifacts: 64 + 32 -> 64 -> 4 on 256² a tile) and 1
+#: (the original floodsr's full-resolution fusion: 32 + 32 -> 32 -> 1 on 512²).
+HR_TAIL_LAYOUTS = (2, 1)
+LAYOUT_TILES = 8     # K1's batch in the kernel phase, as the flagship's
+LAYOUT_SCENE = 1024  # HR pixels a side of each layout's tohr scene (9 tiles)
+
+
+def layout_config(s2d: int):
+    """The flagship artifact's configuration with ``hr_s2d=s2d``."""
+    import dataclasses
+    import zipfile
+
+    from floodsr_tpu_torch.nn.resunet import ResUNetConfig
+
+    with zipfile.ZipFile(FLAGSHIP) as zf:
+        cfg = ResUNetConfig.from_dict(json.loads(zf.read("manifest.json"))["config"])
+    return dataclasses.replace(cfg, hr_s2d=s2d)
+
+
+def layout_tail(torch, seed: int, s2d: int) -> dict:
+    """K1's weights and inputs at one layout: the fuse blocks and head of
+    ``init_resunet(seed, cfg)``, post-ReLU ``|normal|`` features on 8 tiles."""
+    from floodsr_tpu_torch.nn.checkpoint import params_from_jax
+    from floodsr_tpu_torch.nn.resunet import ResUNet, init_resunet
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+
+    cfg = layout_config(s2d)
+    model = ResUNet(cfg)
+    model.load_state_dict(params_from_jax(*init_resunet(seed, cfg)), strict=True)
+    model = model.eval().cuda()
+    weights = ht.pack_hr_tail_weights(model.fuse[0], model.fuse[1], model.head, bn_eps=cfg.bn_eps)
+    hw = cfg.hr_tile // s2d
+    ca, cb = cfg.base_filters * s2d, cfg.fuse_filters
+    rng = np.random.default_rng(seed + s2d)
+    shape = (LAYOUT_TILES, hw, hw)
+    sr = torch.from_numpy(np.abs(rng.normal(0, 1, (*shape, ca))).astype(np.float32)).cuda()
+    dem = torch.from_numpy(np.abs(rng.normal(0, 1, (*shape, cb))).astype(np.float32)).cuda()
+    return {"s2d": s2d, "weights": weights, "sr": sr, "dem": dem, "dims": (ca, cb, ca, s2d * s2d)}
+
+
+def tail_work(sr, dem, weights, cm: int, ch: int) -> dict:
+    """K1's work on these inputs: MACs; the bytes of one read of the inputs and
+    the weights and one write of the output (the bound's); and the bytes each
+    tensor-core route moves through device memory as designed, its
+    intermediates included: the 3xTF32 route's four launches read x twice and
+    write and read three f32 [.., Cm] tensors (y, y1, z; y1 twice); the bf16
+    route's pre-pass reads x and writes bf16(x) twice, its launches store and
+    read bf16 operands and y1 in f32 (csrc/hr_tail.cu's header)."""
+    b, h, w, ca = (int(v) for v in sr.shape)
+    cin, pix = ca + int(dem.shape[3]), b * h * w
+    return {
+        "macs": pix * (9 * cin * cm + 3 * 9 * cm * cm + cin * cm + cm * ch),
+        "bytes": pix * (cin + ch) * 4 + sum(t.numel() for t in weights) * 4,
+        "route_bytes": {
+            "tensor": pix * 4 * (2 * cin + 7 * cm + ch),
+            "bf16": pix * (12 * cin + 20 * cm + 4 * ch),
+        },
+    }
+
+
+def hr_tail_layout_baseline(torch, t: dict) -> dict:
+    """What K1 costs at a layout on the routes it had before it had tensor-core
+    kernels there (the direct f32 and bf16 routes), beside the plain versions
+    and the cuDNN chains, with the bounds: each route held against its plain
+    version first, then timed at 8 tiles (CUDA events)."""
+    from floodsr_tpu_torch.device import set_strict_f32
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+
+    set_strict_f32()
+    sr, dem, weights = t["sr"], t["dem"], t["weights"]
+    ca, cb, cm, ch = t["dims"]
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    want16 = ht.hr_tail_reference_bf16(sr, dem, *weights)
+    direct = ht.hr_tail_cuda(sr, dem, *weights, route="direct")
+    direct16 = ht.hr_tail_cuda(sr, dem, *weights, route="bf16_direct")
+    torch.cuda.synchronize()
+    scale, scale16 = want.abs().max().item(), want16.abs().max().item()
+    err, err16 = (direct - want).abs().max().item(), (direct16 - want16).abs().max().item()
+    if not (err <= 1e-4 * scale and err16 <= BF16_GATE * scale16):
+        raise AssertionError(
+            f"hr_tail s2d={t['s2d']} direct routes vs plain: f32 {err} of {scale}, bf16 {err16} of {scale16}"
+        )
+    work = tail_work(sr, dem, weights, cm, ch)
+    macs, nbytes = work["macs"], work["bytes"]
+    out = {
+        "widths": f"{ca}+{cb}->{cm}->{ch}",
+        "want": want, "want16": want16, "scale": scale, "scale16": scale16, "work": work,
+        "direct_route_ms": time_ms(torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="direct"), reps=3),
+        "direct_bf16_route_ms": time_ms(
+            torch, lambda: ht.hr_tail_cuda(sr, dem, *weights, route="bf16_direct"), reps=3
+        ),
+        "plain_ms": time_ms(torch, lambda: ht.hr_tail_reference(sr, dem, *weights), reps=5),
+        "plain_bf16_ms": time_ms(torch, lambda: ht.hr_tail_reference_bf16(sr, dem, *weights), reps=5),
+        "library_ms": time_ms(torch, cudnn_tail_chain(torch, ht, weights, sr, dem, torch.float32), reps=5),
+        "library_bf16_ms": time_ms(
+            torch, cudnn_tail_chain(torch, ht, weights, sr, dem, torch.bfloat16), reps=10
+        ),
+        "direct_max_abs_err": err, "direct_bf16_max_abs_err": err16,
+        # 3xTF32: three TF32 products a MAC; bf16: one; the direct routes: f32 FMAs
+        "bound_3xtf32": bound(nbytes, 3 * 2 * macs, PEAK_TF32_PER_S),
+        "bound_bf16": bound(nbytes, 2 * macs, PEAK_BF16_PER_S),
+        "bound_f32": bound(nbytes, 2 * macs),
+        "route_bytes_ms": {k: v / PEAK_BYTES_PER_S * 1e3 for k, v in work["route_bytes"].items()},
+    }
+    log(
+        f"[hr_tail layouts] s2d={t['s2d']} {out['widths']} at {tuple(sr.shape[:3])}: direct route "
+        f"{out['direct_route_ms']:.3f} ms (bound {out['bound_f32'][0]:.3f}, f32 on the CUDA cores), "
+        f"direct bf16 route {out['direct_bf16_route_ms']:.3f} ms, plain {out['plain_ms']:.3f} / "
+        f"{out['plain_bf16_ms']:.3f} ms, cuDNN chain TF32 off {out['library_ms']:.3f} ms, on bf16 "
+        f"tensors {out['library_bf16_ms']:.3f} ms; bounds 3xTF32 {out['bound_3xtf32']}, bf16 "
+        f"{out['bound_bf16']}; the routes' own traffic {json.dumps(out['route_bytes_ms'])} ms at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; max |direct - plain| {err:.3e} (f32, of {scale:.3e}), "
+        f"{err16:.3e} (bf16, of {scale16:.3e})"
+    )
+    return out
+
+
+def phase_hr_tail_layouts(torch, seed: int) -> dict:
+    """K1's tensor-core routes at ``hr_s2d`` 2 and 1 (3xTF32 and bf16) against
+    their plain versions at 8 tiles and at 1, then timed beside the direct
+    routes they replace, the plain versions and the cuDNN chains. Returns an
+    entry per layout for each of the two routes."""
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+    from floodsr_tpu_torch.ops.kernels import reset_launch_counts
+
+    entries = {"tensor": {}, "bf16": {}}
+    for s2d in HR_TAIL_LAYOUTS:
+        t = layout_tail(torch, seed, s2d)
+        base = hr_tail_layout_baseline(torch, t)
+        sr, dem, weights = t["sr"], t["dem"], t["weights"]
+        ca, cb, cm, ch = t["dims"]
+        if not ht.tc_eligible(ca, cb, cm, ch):
+            raise AssertionError(f"hr_tail s2d={s2d}: {base['widths']} is not a tensor-core width")
+        packs = {"tensor": ht.pack_hr_tail_tc(weights), "bf16": ht.pack_hr_tail_bf16(weights)}
+        modes = {"tensor": "f32", "bf16": "bf16"}
+        for route, pack in packs.items():
+            want = base["want16" if route == "bf16" else "want"]
+            scale = base["scale16" if route == "bf16" else "scale"]
+
+            def call(tiles, pack=pack, route=route):
+                return ht.hr_tail(sr[:tiles], dem[:tiles], *weights, tc_pack=pack, mode=modes[route])
+
+            reset_launch_counts()
+            got, got1, again = call(LAYOUT_TILES), call(1), call(LAYOUT_TILES)
+            torch.cuda.synchronize()
+            if ht.route_launches != {**dict.fromkeys(ht.route_launches, 0), route: 3}:
+                raise AssertionError(f"hr_tail s2d={s2d} took another route than {route}: {ht.route_launches}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"hr_tail s2d={s2d} {route} route: two calls on the same inputs differ")
+            err = (got - want).abs().max().item()
+            err1 = (got1 - want[:1]).abs().max().item()
+            report = {"max_abs_err": err, "max_abs_err_1_tile": err1, "max_abs_plain": scale}
+            if route == "tensor":
+                # 3xTF32 summed in the tensor core's f32 accumulator: the
+                # flagship's bar, 1e-4 of the output's range
+                ok = max(err, err1) <= 1e-4 * scale
+            else:
+                rms = (got - want).square().mean().sqrt().item()
+                gap = (want - base["want"]).square().mean().sqrt().item()
+                report.update(rms_err=rms, rms_bf16_vs_f32=gap)
+                ok = max(err, err1) <= BF16_GATE * scale and rms < 0.25 * gap
+            if not ok:
+                raise AssertionError(f"hr_tail s2d={s2d} {route} route vs plain: {report}")
+            ms = time_ms(torch, lambda: call(LAYOUT_TILES), reps=10)
+            ms1 = time_ms(torch, lambda: call(1), reps=10)
+            prof = device_profile(torch, lambda: [call(LAYOUT_TILES) for _ in range(3)])
+            by_launch = {
+                k: v / 3 for k, v in
+                prof["hr_tail_tc_ms_by_launch" if route == "tensor" else "hr_tail_bf16_ms_by_launch"].items()
+            }
+            bound_ms, bound_by = base["bound_3xtf32" if route == "tensor" else "bound_bf16"]
+            direct_ms = base["direct_route_ms" if route == "tensor" else "direct_bf16_route_ms"]
+            library_ms = base["library_ms" if route == "tensor" else "library_bf16_ms"]
+            route_bytes_ms = base["route_bytes_ms"][route]
+            entries[route][f"{cm},{ch}"] = {
+                "hr_s2d": s2d, "widths": base["widths"], "ms": ms, "ms_1_tile": ms1,
+                "ms_by_launch": by_launch, "bound_ms": bound_ms, "bound_by": bound_by,
+                "route_bytes_ms": route_bytes_ms,
+                "plain_ms": base["plain_bf16_ms" if route == "bf16" else "plain_ms"],
+                "library_ms": library_ms, "direct_route_ms": direct_ms, "launches": None, **report,
+            }
+            log(
+                f"[hr_tail layouts] s2d={s2d} {base['widths']} {route} route {ms:.3f} ms at "
+                f"{LAYOUT_TILES} tiles ({bound_ms / ms:.1%} of the bound {bound_ms:.3f} ms, {bound_by}; "
+                f"its own traffic {route_bytes_ms:.3f} ms), one tile {ms1:.3f} ms, by launch "
+                f"{json.dumps(by_launch)}; the direct route it replaces {direct_ms:.3f} ms "
+                f"({direct_ms / ms:.2f}x), cuDNN chain {library_ms:.3f} ms; {json.dumps(report)}"
+            )
+        del t, base
+        torch.cuda.empty_cache()
+    usage = ptxas_usage("hr_tail", ("conv_tc_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel"))
+    for kernel, line in usage.items():
+        log(f"[hr_tail layouts] ptxas {kernel}: {line}")
+    return entries
+
+
+@contextlib.contextmanager
+def k1_plain_on_card(ht):
+    """K1 through its plain version for CUDA tensors too: the kernels'
+    yardstick inside a scene, with everything around K1 unchanged."""
+    kernel = ht.hr_tail
+
+    def plain(sr, dem, *weights, tc_pack=None, mode="f32"):
+        reference = ht.hr_tail_reference_bf16 if mode == "bf16" else ht.hr_tail_reference
+        return reference(sr, dem, *weights)
+
+    ht.hr_tail = plain
+    try:
+        yield
+    finally:
+        ht.hr_tail = kernel
+
+
+def phase_layout_scenes(torch, seed: int) -> dict:
+    """``tohr`` on a 1024² scene (9 tiles) with an artifact of each layout,
+    from ``init_resunet(seed, cfg)`` + ``save_artifact``, under ``float32`` and
+    ``bfloat16``: K1 on its tensor-core route at every call (no direct launch).
+    f32: the raster against ``device="cpu"``'s at 1e-3 m RMSE (BASELINE.md).
+    bf16: against the same scene on the card with K1 through its plain
+    version, within a quarter of the policy's own distance to f32. The
+    distance to ``device="cpu"``'s bf16 raster is logged, with K1's kernel and
+    with its plain version: it comes from the bf16 trunk and SR upsample,
+    not from K1 (the two are equal, PERF.md). Returns K1's launches by layout
+    and policy."""
+    from floodsr_tpu_torch.io import read_raster
+    from floodsr_tpu_torch.nn.checkpoint import save_artifact
+    from floodsr_tpu_torch.nn.resunet import init_resunet
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+    from floodsr_tpu_torch.tohr import tohr
+
+    want_route = {"float32": "tensor", "bfloat16": "bf16"}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-layouts-") as tmp:
+        tmp = Path(tmp)
+        dem_fp, depth_fp = scene_inputs(tmp, seed, LAYOUT_SCENE, tag="_layouts")
+        for s2d in HR_TAIL_LAYOUTS:
+            cfg = layout_config(s2d)
+            model_fp = save_artifact(tmp / f"s2d{s2d}.fsrz", cfg, *init_resunet(seed, cfg), {"seed": seed})
+            rasters, report = {}, {}
+            for dtype, route in want_route.items():
+                kw = dict(
+                    model_version="ResUNet_16x_DEM", model_fp=model_fp, depth_lr_fp=depth_fp,
+                    dem_hr_fp=dem_fp, engine_options={"compute_dtype": dtype, "output_transfer": "float32"},
+                )
+
+                def raster(tag, device="cuda", **extra):
+                    fp = tmp / f"s2d{s2d}_{dtype}_{tag}.tif"
+                    tohr(output_fp=fp, device=device, **kw, **extra)
+                    return read_raster(fp)[0]
+
+                run = timed_tohr(torch, output_fp=tmp / f"s2d{s2d}_{dtype}.tif", device="cuda", **kw)
+                k1 = run["routes"]["hr_tail"]
+                if not (k1[route] > 0 and k1 == {**dict.fromkeys(k1, 0), route: k1[route]}):
+                    raise AssertionError(f"s2d={s2d} {dtype} scene: hr_tail by route {k1}, expected {route} only")
+                with k1_plain_on_card(ht):
+                    plain = raster("plain_k1")
+                cpu = raster("cpu", device="cpu")
+                rasters[dtype] = run["pred"]
+                report[dtype] = {
+                    "e2e_s": run["e2e_s"], "exec_s": run["timings"]["exec_s"], "tiles": run["tiles"],
+                    "hr_tail_by_route": k1, "rmse_vs_plain_k1_m": rmse_m(run["pred"], plain),
+                    "rmse_card_vs_cpu_m": rmse_m(run["pred"], cpu),
+                    "rmse_plain_k1_vs_cpu_m": rmse_m(plain, cpu),
+                    "max_abs_card_vs_cpu_m": float(np.abs(run["pred"] - cpu).max()),
+                    "mean_m": float(run["pred"].mean()),
+                }
+            gap = rmse_m(rasters["bfloat16"], rasters["float32"])
+            report["bfloat16"]["rmse_vs_f32_m"] = gap
+            if not report["float32"]["rmse_card_vs_cpu_m"] <= 1e-3:
+                raise AssertionError(f"s2d={s2d} f32 scene, the card against the CPU: {report}")
+            if not (gap > 0.0 and report["bfloat16"]["rmse_vs_plain_k1_m"] < 0.25 * gap):
+                raise AssertionError(f"s2d={s2d} bfloat16 scene, K1 against its plain version: {report}")
+            log(f"[layout scenes] s2d={s2d} {LAYOUT_SCENE}x{LAYOUT_SCENE} {json.dumps(report)}")
+            out[s2d] = {dtype: report[dtype]["hr_tail_by_route"][route] for dtype, route in want_route.items()}
+    return out
+
+
 def ptxas_usage(source: str, kernels: tuple) -> dict:
     """``-Xptxas -v``'s registers, shared memory and spills for each instance of
-    the named kernels, from the last build log of ``csrc/<source>.cu``."""
+    the named kernels (a template's as ``name<arguments>``), from the last
+    build log of ``csrc/<source>.cu``."""
     from floodsr_tpu_torch.ops.kernels import _build
 
     def label(mangled):
-        return next((k for k in kernels if k in mangled), None)
+        for k in kernels:
+            m = re.search(rf"{k}(I(?:L[ib]\d+E)+E)?", mangled)
+            if m:
+                args = re.findall(r"L[ib](\d+)E", m.group(1) or "")
+                return f"{k}<{','.join(args)}>" if args else k
+        return None
 
     out, current = {}, None
     for line in (_build.BUILD_DIR / f"{source}.log").read_text().splitlines():
@@ -2963,6 +3256,14 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     k2 = phase_tile_stats(torch, rng)
     k1, k1_bf16 = phase_hr_tail(torch, rng)
+    layouts = phase_hr_tail_layouts(torch, args.seed)
+    layout_launches = phase_layout_scenes(torch, args.seed)
+    # K1 at the two other HR layouts: each route's entry per (Cm, Ch), with
+    # its launches in that layout's tohr scene
+    for k, route, dtype in ((k1, "tensor", "float32"), (k1_bf16, "bf16", "bfloat16")):
+        for entry in layouts[route].values():
+            entry["launches"] = layout_launches[entry["hr_s2d"]][dtype]
+        k["layouts"] = layouts[route]
     kernels = [k2, k1]
     phase_tohr_cases(torch)
     scene = phase_scene(torch, args.seed, SCENE_SIZE, args.profile)

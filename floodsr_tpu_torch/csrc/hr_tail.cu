@@ -19,17 +19,19 @@
 // dem), so the concat is never materialized; their intermediates are
 // [B, H, W, Cm] f32 in device memory. The bf16 route stores bf16 operands.
 //
-//  - Tensor-core route (hr_tail_tc_launch; Cm = 128, Ch = 16, Ca and Cb
-//    multiples of 4, Ca + Cb a multiple of 16): four launches of
-//    tc::conv_tc_kernel, one implicit-GEMM 3x3 convolution:
+//  - Tensor-core route (hr_tail_tc_launch; (Cm, Ch) = (128, 16), (64, 4) or
+//    (32, 1): the JAX package's three HR layouts, hr_s2d 4, 2 and 1 at base
+//    and fuse width 32; Ca and Cb multiples of 4, Ca + Cb a multiple of 16):
+//    four launches of tc::conv_tc_kernel<N = Cm, CH = Ch, MT>, one
+//    implicit-GEMM 3x3 convolution:
 //        y  = f1.conv1(relu(bn1 x))
-//        y1 = f1.conv2(relu(bn2 y)) + proj(x)   the projection as ten more
-//                                               chunks of K on the raw x
+//        y1 = f1.conv2(relu(bn2 y)) + proj(x)   the projection as (Ca+Cb)/16
+//                                               more chunks of K on the raw x
 //        z  = f2.conv1(relu(bn1 y1))
 //        out = head(f2.conv2(relu(bn2 z)) + y1) y1 starts the sums; y2 never
 //                                               reaches device memory
-//      * GEMM: M = pixels, N = the 128 output channels (all in one block),
-//        K = taps x input channels. wgmma.mma_async m64n128k8 with TF32
+//      * GEMM: M = pixels, N = the Cm output channels (all in one block),
+//        K = taps x input channels. wgmma.mma_async m64nNk8 with TF32
 //        operands from shared memory and f32 accumulators in registers.
 //      * Precision: 3xTF32. Every f32 operand is split into hi = tf32(x)
 //        (cvt.rna: nearest, ties away from zero) and lo = tf32(x - hi); a
@@ -37,11 +39,12 @@
 //        accumulator, so the result stays at f32-rounding level. (The
 //        accumulator chops where an FMA rounds: 1.4e-5 of the output's range
 //        against the plain version, where the direct route has 1.8e-6.)
-//      * A block is 4 image rows x 64 columns = 256 pixels: two consumer
-//        warpgroups, each with two 64-pixel GEMM tiles (one per image row,
-//        128 accumulator registers a thread), and one producer warpgroup. The
-//        64 rows of a GEMM tile are 64 consecutive pixels of one image row,
-//        so every tap is a constant byte offset into one staged patch.
+//      * A block is 2 MT image rows x 64 columns: two consumer warpgroups,
+//        each with MT 64-pixel GEMM tiles (one per image row, MT N/2
+//        accumulator registers a thread: MT = 2 at Cm 128, 4 at Cm 64 and
+//        32), and one producer warpgroup. The 64 rows of a GEMM tile are 64
+//        consecutive pixels of one image row, so every tap is a constant byte
+//        offset into one staged patch.
 //      * The patch (halo 1) is staged once per block and 16-channel chunk by
 //        three producer warps: float4 loads, affine (__fmul_rn/__fadd_rn) +
 //        ReLU, zero outside the image, hi/lo split, stored in the no-swizzle
@@ -53,16 +56,38 @@
 //      * Weights are split and laid out once per set of weights on the host
 //        (one slab [hi|lo][channel quad][cout][4] per chunk and tap); one
 //        producer thread streams them through a 4-stage ring with
-//        cp.async.bulk + mbarrier, 16 KB a stage. 256 pixels a block keeps
-//        the L2 re-reads of the 1.18 MB of hi+lo weights of a 3x3 at 0.6 GB
-//        a convolution.
+//        cp.async.bulk + mbarrier, 128 N bytes a stage. 256 pixels a block
+//        keeps the L2 re-reads of the 1.18 MB of hi+lo weights of a 3x3 at
+//        Cm 128 at 0.6 GB a convolution; 512 at the small widths.
 //      * The residual initializes the accumulators (its loads overlap the
 //        pipeline's fill; it may alias the output: each element is read and
 //        later written by the same thread); the epilogue adds the bias and
 //        stores float2 from the wgmma fragment layout.
-//      * The fused head: each warpgroup writes its 64-pixel tile of y2, split
+//      * The fused head: each warpgroup writes its 64-pixel tiles of y2, split
 //        into hi and lo, over the then idle pipeline buffers in the A layout
-//        and runs 16 more k8 steps of m64n16k8 against the head's weights.
+//        and runs Cm/8 more k8 steps of m64nHNk8 against the head's weights,
+//        HN = Ch rounded up to the wgmma's 8 (the pack's columns beyond Ch
+//        are zeros; only Ch are stored).
+//      * The small widths (MT = 4; the consumers' and stagers' code differs
+//        from the flagship's, whose instantiation is left as it was measured,
+//        bit for bit): an m64n32k8 reads 2 KB of A and 1 KB of B from shared
+//        memory in its 16 clocks at peak, 192 bytes a clock against the SM's
+//        128 (m64n64k8: 128); so four tiles a warpgroup, so a weight slab
+//        feeds 512 pixels. The consumers wait in PTX and arrive predicated,
+//        the role branch is warp-uniform to the compiler and each tap's
+//        products are waited for before the next tap's (wait_group 0): with a
+//        C++ spin loop, or a group in flight across the loop, ptxas
+//        serializes the wgmma (C7518, C7515), which costs a latency per
+//        product. The stagers bring the raw patch in by cp.async, every copy
+//        of the chunk in flight at once (zeros outside the image), then
+//        activate and split it in place. What binds them, measured with clock
+//        counters in a copy of the kernel (tools/hr_tail_tc_probe.py): shared
+//        memory. The consumers wait for a staged patch 31% (Cm 64) and 40%
+//        (Cm 32) of their chunk loop, and the stagers' activate-and-split
+//        pass, whose shared-memory traffic competes with the products'
+//        operand reads, takes twice their copies' time. A from registers,
+//        each patch row loaded once for the three taps that read it, is the
+//        next step.
 //      * A barrier that is not reached within seconds traps, so a protocol
 //        fault shows as a launch error and not as a hang.
 //  - bf16 route (hr_tail_bf16_launch; the same widths): the arithmetic of the
@@ -74,7 +99,7 @@
 //    stays at three-pass precision (head_mode "x3"), the 3xTF32 product of
 //    the tensor-core route's epilogue. A pre-pass, three launches of
 //    tc::bf::conv_bf16_kernel and one of conv_bf16_head_kernel, one wgmma
-//    m64n128k16 .f32.bf16.bf16 per tap and 16-channel chunk:
+//    m64nNk16 .f32.bf16.bf16 per tap, 64-pixel tile and 16-channel chunk:
 //      * Each operand is produced once, as bf16, by the launch that computes
 //        it: an epilogue applies the NEXT convolution's affine and ReLU
 //        (__fmul_rn/__fadd_rn, __floats2bfloat162_rn) and stores NHWC bf16;
@@ -97,12 +122,15 @@
 //        3x3 chunks. The sums keep the order of the route before this one
 //        (residual first, chunk outer, tap inner), so the result is the same
 //        bit for bit.
-//      * A unit is 2 image rows x 64 columns: one 64-pixel GEMM tile per MMA
-//        warpgroup (64 accumulators a thread); a 128x128 tile is 128 units, so
-//        the scene's call of one tile fills the card. Units of 4 rows (256
-//        pixels a weight read) were slower: with 4 MMA warpgroups ptxas
-//        budgets 96 registers and spills, with 2 warpgroups of two tiles each
-//        it serializes the wgmma (C7515).
+//      * A unit is 2 MT image rows x 64 columns: MT 64-pixel GEMM tiles per
+//        MMA warpgroup, 64 accumulators a thread at every width (MT = 1 at Cm
+//        128, 2 at 64, 4 at 32); a 128x128 tile is 128 units at Cm 128, so
+//        the scene's call of one tile fills the card. At Cm 128, units of 4
+//        rows (256 pixels a weight read) were slower: with 4 MMA warpgroups
+//        ptxas budgets 96 registers and spills, with 2 warpgroups of two
+//        tiles each it serializes the wgmma (C7515). A patch octet whose size
+//        is not a multiple of 128 bytes (6 or 10 rows) is padded to one in
+//        the stage, TMA's alignment of a destination.
 //      * The three body launches are one persistent kernel
 //        (conv_bf16_kernel, a block an SM, 3 ring stages): a producer warp
 //        runs ahead across units, the MMA warpgroups hand each finished tile
@@ -151,9 +179,27 @@
 // together read about 6 TB/s from L2: the loads, not the tensor cores, set
 // the pace. Sharing each weight slab between the two blocks of a cluster
 // (multicast) was tried and was slower.
+// At the other two layouts (8 tiles; Ca+Cb -> Cm -> Ch, tile side): hr_s2d 2
+// (96 -> 64 -> 4, 256) is 11.29 GMAC a tile, hr_s2d 1 (64 -> 32 -> 1, 512)
+// 12.63: the 3xTF32 bounds are 1.095 and 1.224 ms, the bf16 bounds 0.183
+// and 0.204 ms, all operations. But each route moves more than its bound's
+// bytes as designed, its intermediates included: the 3xTF32 route 1.35 and
+// 2.96 GB at 8 tiles (0.403 and 0.884 ms at 3.35 TB/s), the bf16 route 1.28
+// and 2.96 GB (0.383 and 0.884 ms, a third of it its pre-pass): those bytes,
+// not the operations, bound the bf16 route at both layouts, and at hr_s2d 1
+// they are 72% of the 3xTF32 route's operation bound. A fused row-band
+// design that keeps the intermediates on chip (the TPU kernel's own shape)
+// is the way under them.
 // -Xptxas -v (nvcc 12.9, sm_90a): conv_bf16_kernel and conv_bf16_head_kernel
-// 90 registers each, no spills; 207,824 and 199,880 bytes of dynamic shared
-// memory; bf16_prepass_kernel 24 registers.
+// 90 registers each at every width (92 for the head at Cm 32), no spills;
+// dynamic shared memory 207,824 and 199,880 bytes at Cm 128, 199,936 and
+// 130,248 at 64, 204,608 and 124,616 at 32; bf16_prepass_kernel 24
+// registers. conv_tc_kernel 168 registers at Cm 128 (its head variant
+// spills 120 bytes, as it did before the widths were templated) and at 64
+// (the head variant 16 bytes), 96 and 108 at 32; dynamic shared memory
+// 168,552 / 184,936 (head) bytes at Cm 128, 203,368 / 207,464 at 64 and
+// 186,984 / 189,032 at 32. ptxas serializes the wgmma of the Cm 128
+// instantiation only (C7518).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -408,48 +454,62 @@ namespace tc {
 
 constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int kStagers = 96;    // producer warps 1-3 stage the patch; warp 0 streams weights
-constexpr int TR = 4;           // image rows per block
 constexpr int TWX = 64;         // image columns per block: the 64 rows of one wgmma
 constexpr int CK = 16;          // input channels per patch stage (two k8 steps)
 constexpr int NB = 4;           // weight ring stages, one (chunk, tap) slab each
 constexpr int kPixLanes = kStagers / 4;  // stager threads along the patch row
 constexpr int TAPS = 9;         // 3x3
-constexpr int N = 128;          // output channels: the width of one wgmma
-constexpr int NACC = N / 2;     // accumulator registers of one m64nN tile
-
-// The staged patch: the block's pixels with a halo of 1.
-constexpr int PH = TR + 2;
-constexpr int PW = TWX + 2;
-constexpr int PIX = PH * PW;
-// Plane length in pixels, = 2 mod 8: the four channel quads that a stager
-// quarter-warp writes for two neighbouring pixels then fall into eight
-// different 16-byte bank groups.
-constexpr int PLANE_PIX = PIX + ((2 - PIX % 8) + 8) % 8;
-constexpr int PLANE = PLANE_PIX * 16;     // bytes: [pixel][one 16-byte row of channels]
+constexpr int PW = TWX + 2;     // patch columns (halo 1)
 constexpr int NPX = (PW + kPixLanes - 1) / kPixLanes;
-constexpr int QB = N * 16;                // bytes of one plane of weights: [cout][16-byte row]
+constexpr int Y_PLANE = TWX * 16;  // one channel quad of a 64-pixel y tile
+constexpr int kSmemMax = 232448;   // a block's shared memory on the H100
 
-// Stage sizes. A 16-byte row holds 4 TF32 channels, so a 16-channel chunk is
-// four planes of hi and four of lo.
-constexpr int A_HALF = (CK / 4) * PLANE;    // the hi patch
-constexpr int A_STAGE = 2 * A_HALF;         // hi then lo
-constexpr int B_HALF = (CK / 4) * QB;       // hi weights of a ring stage
-constexpr int B_STAGE = 2 * B_HALF;
-constexpr int PIPE = 2 * A_STAGE + NB * B_STAGE;  // two patch stages, the ring
-
-constexpr int HEAD_N = 16;                       // output channels of the fused 1x1 head
-constexpr int HEAD_W_BYTES = 2 * N * HEAD_N * 4;  // its hi and lo weights
-constexpr int Y_PLANE = TWX * 16;                // one channel quad of a 64-pixel y tile
-constexpr int Y_HALF = (N / 4) * Y_PLANE;        // the hi (or lo) y tile of one warpgroup
+// The widths a route is instantiated for (TC_WIDTHS in hr_tail.py): N output
+// channels of each convolution (one wgmma's width, all in one block), CH
+// outputs of the 1x1 head, whose wgmma is HN = CH rounded up to 8 wide (the
+// pack's columns beyond CH are zeros, and they are not stored), and MT 64-pixel
+// GEMM tiles (image rows) per consumer warpgroup: a block is TR = 2 MT image
+// rows x 64 columns. (128, 16, 2) is the flagship's; (64, 4, 4) and (32, 1, 4)
+// carry hr_s2d = 2 and 1, where the accumulators of a tile shrink to N/2
+// registers, so a warpgroup carries four tiles and a weight slab read from
+// the ring feeds 512 pixels instead of 256.
+template <int N_, int CH_, int MT_>
+struct Widths {
+  static constexpr int N = N_;
+  static constexpr int CH = CH_;
+  static constexpr int MT = MT_;
+  static constexpr int HN = (CH + 7) / 8 * 8;
+  static constexpr int NACC = N / 2;  // accumulator registers of one m64nN tile
+  static constexpr int TR = 2 * MT;   // image rows per block
+  // The staged patch: the block's pixels with a halo of 1.
+  static constexpr int PH = TR + 2;
+  static constexpr int PIX = PH * PW;
+  // Plane length in pixels, = 2 mod 8: the four channel quads that a stager
+  // quarter-warp writes for two neighbouring pixels then fall into eight
+  // different 16-byte bank groups.
+  static constexpr int PLANE_PIX = PIX + ((2 - PIX % 8) + 8) % 8;
+  static constexpr int PLANE = PLANE_PIX * 16;  // bytes: [pixel][one 16-byte row of channels]
+  static constexpr int QB = N * 16;             // bytes of one plane of weights: [cout][16-byte row]
+  // Stage sizes. A 16-byte row holds 4 TF32 channels, so a 16-channel chunk
+  // is four planes of hi and four of lo.
+  static constexpr int A_HALF = (CK / 4) * PLANE;   // the hi patch
+  static constexpr int A_STAGE = 2 * A_HALF;        // hi then lo
+  static constexpr int B_HALF = (CK / 4) * QB;      // hi weights of a ring stage
+  static constexpr int B_STAGE = 2 * B_HALF;
+  static constexpr int PIPE = 2 * A_STAGE + NB * B_STAGE;  // two patch stages, the ring
+  static constexpr int HEAD_W_BYTES = 2 * N * HN * 4;      // the head's hi and lo weights
+  static constexpr int Y_HALF = (N / 4) * Y_PLANE;         // the hi (or lo) y tile of one warpgroup
+};
 
 // Shared-memory plan. PIPE: the bytes before the head's weights: the
 // pipeline's buffers, which with HEAD must also hold the two warpgroups' hi
 // and lo y tiles once they are idle. BYTES: the pipeline, the head's weights,
 // 2 + 2 + NB + NB + 1 barriers.
-template <bool HEAD>
+template <class Wd, bool HEAD>
 struct Smem {
-  static constexpr int PIPE = (HEAD && 4 * Y_HALF > tc::PIPE) ? 4 * Y_HALF : tc::PIPE;
-  static constexpr int BYTES = PIPE + (HEAD ? HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
+  static constexpr int PIPE = (HEAD && 4 * Wd::Y_HALF > Wd::PIPE) ? 4 * Wd::Y_HALF : Wd::PIPE;
+  static constexpr int BYTES = PIPE + (HEAD ? Wd::HEAD_W_BYTES : 0) + (5 + 2 * NB) * 8;
+  static_assert(BYTES <= kSmemMax, "a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -489,12 +549,93 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// mbar_wait with its loop inside the PTX, so the compiler sees no divergent
+// branch around the wgmma that follow (a branch there makes ptxas serialize
+// them, C7520). It traps, as mbar_wait does, after about two seconds.
+__device__ __forceinline__ void mbar_wait_ptx(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4000000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on the barrier from the thread whose lane is 0, predicated in
+// the PTX (no branch).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(lane)
+      : "memory");
+}
+
+// Pin the accumulators at a pipeline stage's edges (an empty asm that reads
+// and writes each), so the compiler moves no definition of them into a stage
+// of wgmma in flight.
+template <int MT, int NACC>
+__device__ __forceinline__ void fence_acc(float (&acc)[MT][NACC]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[mt][i])::"memory");
+}
+
+// One arrival on the barrier where pred is nonzero, predicated in the PTX
+// (no branch).
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, int pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(pred)
+      : "memory");
+}
+
+// A consumer's wait: in PTX (no branch around the wgmma) or the C++ loop.
+template <bool PTX>
+__device__ __forceinline__ void consumer_wait(uint32_t bar, uint32_t parity) {
+  if (PTX) {
+    mbar_wait_ptx(bar, parity);
+  } else {
+    mbar_wait(bar, parity);
+  }
+}
+
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// 16 bytes global -> shared by cp.async, the bytes past src_bytes (all 16
+// with 0) filled with zeros; then this thread's copies all landed.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Barrier id among count threads (id 0 is __syncthreads).
@@ -527,6 +668,7 @@ __device__ __forceinline__ float tf32_rna(float x) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
 }
+
 
 __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
@@ -601,6 +743,102 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -619,6 +857,53 @@ __device__ __forceinline__ float act(float raw, float a, float c) {
   return fmaxf(__fadd_rn(__fmul_rn(raw, a), c), 0.f);
 }
 
+
+// The stagers' last step for 4 channels of a patch pixel: the affine and
+// ReLU (where activate), zero outside the image, split into TF32 hi and lo,
+// stored at dst and dst + lo_off.
+__device__ __forceinline__ void split_store(float4 v, bool ok, bool activate, float4 fa,
+                                            float4 fc, unsigned char* dst, int lo_off) {
+  if (activate) {
+    v.x = act(v.x, fa.x, fc.x);
+    v.y = act(v.y, fa.y, fc.y);
+    v.z = act(v.z, fa.z, fc.z);
+    v.w = act(v.w, fa.w, fc.w);
+  }
+  if (!ok) v = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 hi, lo;
+  hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+  hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+  hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
+  hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
+  *reinterpret_cast<float4*>(dst) = hi;
+  *reinterpret_cast<float4*>(dst + lo_off) = lo;
+}
+
+// A pixel's head outputs from its m64nHN fragment: lane l holds columns
+// 8j + 2(l%4) and + 1 of its two rows as hacc[4j + 2*half + 0/1]; px_out is
+// the pixel's row of CH floats, and the columns at CH and beyond (the zeros
+// of the padded head) are not stored.
+template <int CH, int NH>
+__device__ __forceinline__ void store_head(float* px_out, const float (&hacc)[NH], int half,
+                                           int lane, const float* __restrict__ head_bias) {
+#pragma unroll
+  for (int j = 0; j < NH / 4; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (CH % 2 == 0) {
+      if (col < CH) {
+        const float2 hb = *reinterpret_cast<const float2*>(head_bias + col);
+        float2 v;
+        v.x = hacc[4 * j + 2 * half] + hb.x;
+        v.y = hacc[4 * j + 2 * half + 1] + hb.y;
+        *reinterpret_cast<float2*>(px_out + col) = v;
+      }
+    } else {
+      if (col < CH) px_out[col] = hacc[4 * j + 2 * half] + head_bias[col];
+      if (col + 1 < CH) px_out[col + 1] = hacc[4 * j + 2 * half + 1] + head_bias[col + 1];
+    }
+  }
+}
+
 // out[b, y, x, :N] = bias (+ bias2) (+ res) + sum over taps and input channels
 // of f(x)[b, y+ky-1, x+kx-1, ci] * w[tap, ci, :] (+ x2[b, y, x, :] @ w2), with
 // f = relu(a*x + c), zero outside the image. x = (xa | xb) is the convolved
@@ -629,12 +914,12 @@ __device__ __forceinline__ float act(float raw, float a, float c) {
 // [hi|lo][CK/4][N][4] per (chunk, tap) of x, then one per chunk of x2. Every
 // channel count is a multiple of 4, ca + cb and c2a + c2b multiples of CK.
 //
-// With HEAD, the result y is not stored: out[b, y, x, :16] = y @ head_w +
+// With HEAD, the result y is not stored: out[b, y, x, :CH] = y @ head_w +
 // head_b. Each warpgroup writes a 64-pixel tile of y, split into
 // hi and lo, over the idle pipeline buffers in the A-operand layout and
 // multiplies it with the head's hi/lo weights (head_pack: N/CK slabs of
-// [hi|lo][CK/4][16][4], loaded once at the start) in 16 more k8 steps.
-template <bool HEAD>
+// [hi|lo][CK/4][HN][4], loaded once at the start) in N/8 more k8 steps.
+template <int N, int CH, int MT, bool HEAD>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ aff_a, const float* __restrict__ aff_c,
@@ -643,12 +928,23 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ bias2, const float* res,
                const float* __restrict__ head_pack, const float* __restrict__ head_bias,
                float* out, int H, int W) {
+  using Wd = Widths<N, CH, MT>;
+  constexpr int NACC = Wd::NACC, HN = Wd::HN, TR = Wd::TR, PH = Wd::PH;
+  constexpr int PLANE = Wd::PLANE, QB = Wd::QB, A_HALF = Wd::A_HALF, A_STAGE = Wd::A_STAGE;
+  constexpr int B_HALF = Wd::B_HALF, B_STAGE = Wd::B_STAGE, HEAD_W_BYTES = Wd::HEAD_W_BYTES;
+  constexpr int Y_HALF = Wd::Y_HALF;
+  // The consumers of the small widths wait in PTX (mbar_wait_ptx) and arrive
+  // predicated, with their accumulators pinned at each stage's edges: a C++
+  // spin loop or branch around the wgmma makes ptxas serialize them (C7518),
+  // which costs a wgmma's latency per product, most where N is small. The
+  // flagship's instantiation keeps the waits it was measured with.
+  constexpr bool PTX = N < 128;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* a_buf = smem;
   unsigned char* b_buf = smem + 2 * A_STAGE;
   const uint32_t a_smem = smem_u32(a_buf);
   const uint32_t b_smem = smem_u32(b_buf);
-  const uint32_t h_smem = a_smem + Smem<HEAD>::PIPE;  // the head's weights, hi then lo per slab
+  const uint32_t h_smem = a_smem + Smem<Wd, HEAD>::PIPE;  // the head's weights, hi then lo per slab
   const uint32_t bars = h_smem + (HEAD ? HEAD_W_BYTES : 0);
   const uint32_t full_a = bars;             // [2] the stagers' arrivals
   const uint32_t empty_a = bars + 16;       // [2] one arrival per consumer warp
@@ -658,7 +954,8 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  // with PTX, warp-uniform as far as the compiler can tell (the role branch below)
+  const int warp = PTX ? __shfl_sync(0xffffffffu, tid >> 5, 0) : tid >> 5;
   const int x0 = blockIdx.x * TWX;
   const int y0 = blockIdx.y * TR;
   const int b = blockIdx.z;
@@ -681,15 +978,15 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
   __syncthreads();
 
   if (warp < 8) {
-    // ---- consumers: warpgroup wg multiplies image rows 2*wg and 2*wg + 1 ----
+    // ---- consumers: warpgroup wg multiplies image rows MT*wg .. MT*wg + MT-1 ----
     const int wg = warp >> 2;
     // The m64nN fragment: thread (warp w, lane l) of the warpgroup holds rows
     // 16w + l/4 and + 8, columns 8j + 2(l%4) and + 1, as acc[4j + 2*half + 0/1].
     const int wq = warp & 3;
-    float acc[2][NACC];
+    float acc[MT][NACC];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int gy = y0 + wg * 2 + mt;
+    for (int mt = 0; mt < MT; ++mt) {
+      const int gy = y0 + wg * MT + mt;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
@@ -709,15 +1006,15 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
     uint32_t it = 0;
     for (int c = 0; c < nchunks; ++c) {
       const int sa = c & 1;
-      mbar_wait(full_a + 8 * sa, (c >> 1) & 1);
-      const uint32_t a_rows = a_smem + sa * A_STAGE + (wg * 2 * PW) * 16;
+      consumer_wait<PTX>(full_a + 8 * sa, (c >> 1) & 1);
+      const uint32_t a_rows = a_smem + sa * A_STAGE + (wg * MT * PW) * 16;
       const int ntaps = c < n1 ? TAPS : 1;
       const int tap0 = c < n1 ? 0 : TAPS / 2;  // the 1x1 input sits at the centre tap
 #pragma unroll 1
       for (int t = 0; t < ntaps; ++t, ++it) {
         const int tap = tap0 + t;
         const uint32_t sb = it & (NB - 1);
-        mbar_wait(full_b + 8 * sb, (it / NB) & 1);
+        consumer_wait<PTX>(full_b + 8 * sb, (it / NB) & 1);
         const int ky = tap / 3;
         const int kx = tap - 3 * ky;
         const uint32_t a_tap = a_rows + (ky * PW + kx) * 16;
@@ -728,7 +1025,7 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
           const uint64_t dbh = smem_desc(b_hi + kk * 2 * QB, QB, 128);
           const uint64_t dbl = smem_desc(b_hi + B_HALF + kk * 2 * QB, QB, 128);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int mt = 0; mt < MT; ++mt) {
             const uint32_t a0 = a_tap + kk * 2 * PLANE + mt * PW * 16;
             const uint64_t dah = smem_desc(a0, PLANE, 128);
             const uint64_t dal = smem_desc(a0 + A_HALF, PLANE, 128);
@@ -738,9 +1035,16 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
           }
         }
         wgmma_commit();
-        wgmma_wait<1>();
+        if (PTX) {
+          wgmma_wait<0>();
+        } else {
+          wgmma_wait<1>();
+        }
         // The group before this one has finished reading its stages.
-        if (it > 0 && lane == 0) {
+        if (PTX) {
+          mbar_arrive_if(empty_b + 8 * ((it - 1) & (NB - 1)), it > 0 && lane == 0);
+          mbar_arrive_if(empty_a + 8 * ((c - 1) & 1), it > 0 && lane == 0 && t == 0);
+        } else if (it > 0 && lane == 0) {
           mbar_arrive(empty_b + 8 * ((it - 1) & (NB - 1)));
           if (t == 0) mbar_arrive(empty_a + 8 * ((c - 1) & 1));
         }
@@ -749,7 +1053,7 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
     wgmma_wait<0>();
     // Keep the compiler from reading the accumulators before the wait.
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[mt][i])::"memory");
 
@@ -757,8 +1061,8 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
     // read above by the thread that writes it here).
     if (!HEAD) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int gy = y0 + wg * 2 + mt;
+      for (int mt = 0; mt < MT; ++mt) {
+        const int gy = y0 + wg * MT + mt;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
@@ -783,11 +1087,11 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
       // Both warpgroups have finished reading the pipeline's buffers; each
       // takes its own part of them for its y tiles.
       named_barrier(1, 256);
-      mbar_wait(full_h, 0);
+      consumer_wait<PTX>(full_h, 0);
       unsigned char* y_buf = smem + wg * 2 * Y_HALF;
       const uint32_t y_smem = a_smem + wg * 2 * Y_HALF;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         // y = sums + bias, split, in the A layout: plane[channel quad][pixel][4].
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -814,16 +1118,16 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         named_barrier(2 + wg, 128);
-        float hacc[HEAD_N / 2];
+        float hacc[HN / 2];
 #pragma unroll
-        for (int i = 0; i < HEAD_N / 2; ++i) hacc[i] = 0.f;
+        for (int i = 0; i < HN / 2; ++i) hacc[i] = 0.f;
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < N / 8; ++ks) {
-          constexpr int HQ = HEAD_N * 16;  // bytes of one channel quad of head weights
-          const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HEAD_N * 4) + (ks & 1) * 2 * HQ;
+          constexpr int HQ = HN * 16;  // bytes of one channel quad of head weights
+          const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HN * 4) + (ks & 1) * 2 * HQ;
           const uint64_t dbh = smem_desc(hw, HQ, 128);
-          const uint64_t dbl = smem_desc(hw + CK * HEAD_N * 4, HQ, 128);
+          const uint64_t dbl = smem_desc(hw + CK * HN * 4, HQ, 128);
           const uint64_t dah = smem_desc(y_smem + ks * 2 * Y_PLANE, Y_PLANE, 128);
           const uint64_t dal = smem_desc(y_smem + Y_HALF + ks * 2 * Y_PLANE, Y_PLANE, 128);
           wgmma_tf32(hacc, dal, dbh);
@@ -833,21 +1137,13 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int i = 0; i < HEAD_N / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
-        const int gy = y0 + wg * 2 + mt;
+        for (int i = 0; i < HN / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+        const int gy = y0 + wg * MT + mt;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
           if (gy >= H || gx >= W) continue;
-          const size_t base = (((size_t)b * H + gy) * W + gx) * HEAD_N + 2 * (lane & 3);
-#pragma unroll
-          for (int j = 0; j < HEAD_N / 8; ++j) {
-            const float2 hb = *reinterpret_cast<const float2*>(head_bias + 8 * j + 2 * (lane & 3));
-            float2 v;
-            v.x = hacc[4 * j + 2 * half] + hb.x;
-            v.y = hacc[4 * j + 2 * half + 1] + hb.y;
-            *reinterpret_cast<float2*>(out + base + 8 * j) = v;
-          }
+          store_head<CH>(out + (((size_t)b * H + gy) * W + gx) * CH, hacc, half, lane, head_bias);
         }
         // The tile is read; the next one may overwrite it.
         named_barrier(2 + wg, 128);
@@ -899,47 +1195,69 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
       }
       // plane q: a 16-byte row of 4 channels
       unsigned char* hi_plane = a_buf + sa * A_STAGE + q * PLANE;
-      // Two patch rows a step, so six loads are in flight per thread.
-      for (int py0 = 0; py0 < PH; py0 += 2) {
-        float4 raw[2][NPX];
-        bool ok[2][NPX];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int gy = y0 + py0 + r - 1;  // the halo
+      if constexpr (PTX) {
+        // The raw patch first, by cp.async into the lo half (zeros outside
+        // the image), every copy of the chunk in flight at once: with two
+        // rows a step the small widths' chunks waited out a device-memory
+        // latency every two rows. Then each thread activates and splits, in
+        // place, the elements it copied.
+        for (int py = 0; py < PH; ++py) {
+          const int gy = y0 + py - 1;  // the halo
 #pragma unroll
           for (int j = 0; j < NPX; ++j) {
             const int px = pc + kPixLanes * j;
             const int gx = x0 + px - 1;  // the halo
-            ok[r][j] = px < PW && gy >= 0 && gy < H && gx >= 0 && gx < W;
-            raw[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (ok[r][j]) {
-              raw[r][j] = __ldg(reinterpret_cast<const float4*>(
-                  src + (((size_t)b * H + gy) * W + gx) * cs + coff));
+            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            if (px < PW) {
+              cp_async_16(smem_u32(hi_plane + A_HALF + (py * PW + px) * 16),
+                          ok ? src + (((size_t)b * H + gy) * W + gx) * cs + coff : src,
+                          ok ? 16 : 0);
             }
           }
         }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
+        cp_async_wait_all();
+        for (int py = 0; py < PH; ++py) {
+          const int gy = y0 + py - 1;
 #pragma unroll
           for (int j = 0; j < NPX; ++j) {
             const int px = pc + kPixLanes * j;
+            const int gx = x0 + px - 1;
             if (px >= PW) continue;
-            float4 v = raw[r][j];
-            if (activate) {
-              v.x = act(v.x, fa.x, fc.x);
-              v.y = act(v.y, fa.y, fc.y);
-              v.z = act(v.z, fa.z, fc.z);
-              v.w = act(v.w, fa.w, fc.w);
+            unsigned char* dst = hi_plane + (py * PW + px) * 16;
+            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            split_store(*reinterpret_cast<const float4*>(dst + A_HALF), ok, activate, fa, fc,
+                        dst, A_HALF);
+          }
+        }
+      } else {
+        // Two patch rows a step, so six loads are in flight per thread.
+        for (int py0 = 0; py0 < PH; py0 += 2) {
+          float4 raw[2][NPX];
+          bool ok[2][NPX];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int gy = y0 + py0 + r - 1;  // the halo
+#pragma unroll
+            for (int j = 0; j < NPX; ++j) {
+              const int px = pc + kPixLanes * j;
+              const int gx = x0 + px - 1;  // the halo
+              ok[r][j] = px < PW && gy >= 0 && gy < H && gx >= 0 && gx < W;
+              raw[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (ok[r][j]) {
+                raw[r][j] = __ldg(reinterpret_cast<const float4*>(
+                    src + (((size_t)b * H + gy) * W + gx) * cs + coff));
+              }
             }
-            if (!ok[r][j]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-            unsigned char* dst = hi_plane + ((py0 + r) * PW + px) * 16;
-            float4 hi, lo;
-            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
-            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
-            hi.z = tf32_rna(v.z); lo.z = tf32_rna(v.z - hi.z);
-            hi.w = tf32_rna(v.w); lo.w = tf32_rna(v.w - hi.w);
-            *reinterpret_cast<float4*>(dst) = hi;
-            *reinterpret_cast<float4*>(dst + A_HALF) = lo;
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int j = 0; j < NPX; ++j) {
+              const int px = pc + kPixLanes * j;
+              if (px >= PW) continue;
+              split_store(raw[r][j], ok[r][j], activate, fa, fc,
+                          hi_plane + ((py0 + r) * PW + px) * 16, A_HALF);
+            }
           }
         }
       }
@@ -950,14 +1268,15 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
   }
 }
 
-template <bool HEAD>
+template <int N, int CH, int MT, bool HEAD>
 cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float* a,
                    const float* c, const float* x2a, int c2a, const float* x2b, int c2b,
                    const float* wpack, const float* bias, const float* bias2,
                    const float* res, const float* head_pack, const float* head_bias,
                    float* out, int B, int H, int W, cudaStream_t stream) {
-  auto kern = conv_tc_kernel<HEAD>;
-  constexpr int smem = Smem<HEAD>::BYTES;
+  auto kern = conv_tc_kernel<N, CH, MT, HEAD>;
+  constexpr int smem = Smem<Widths<N, CH, MT>, HEAD>::BYTES;
+  constexpr int TR = Widths<N, CH, MT>::TR;
   // The opt-in to more than 48 KB of dynamic shared memory holds for the life
   // of the process: set it at this kernel's first launch on each device.
   constexpr int kMaxDevices = 64;
@@ -977,95 +1296,64 @@ cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: one implicit-GEMM 3x3 convolution on wgmma m64n128k16, its
+// bf16 route: one implicit-GEMM 3x3 convolution on wgmma m64nNk16, its
 // operands brought in by TMA, already activated and rounded to bf16.
 // ---------------------------------------------------------------------------
 
 namespace bf {
 
-// A unit is 2 image rows x 64 columns: one 64-pixel GEMM tile (an image row)
-// per MMA warpgroup, 64 accumulators a thread. A 128x128 tile is 128 units,
-// so the scene's call of one tile fills the card.
-constexpr int TR = 2;                    // image rows of a unit
-constexpr int PH = TR + 2;               // rows of its patch (halo 1)
-constexpr int BOX = PH * PW * 16;        // one channel octet of the patch, [row][col][8]: 4224 B
-constexpr int A_CHUNK = 2 * BOX;         // a chunk's two octets
-constexpr int W_SLAB = 2 * QB;           // one (chunk, tap) slab [octet][N][8]: 4 KB
-constexpr int W_CHUNK = TAPS * W_SLAB;   // a chunk's nine slabs, contiguous in the pack: 36 KB
-constexpr int STAGE = A_CHUNK + W_CHUNK; // the patch, then the nine slabs
-constexpr int XPLANE = TR * TWX * 16;    // one octet of the unit's own pixels: 2 KB
-constexpr int XCHUNK = 2 * XPLANE + W_SLAB;  // a projection chunk: x and its slab
-constexpr int KP = STAGE / XCHUNK;       // projection chunks a stage (5)
-// The epilogue's per-channel vectors, staged once: bias, bias2, next_a, next_c.
-constexpr int VEC_BYTES = 4 * N * 4;
-static_assert(BOX % 128 == 0, "TMA destinations are 128-byte aligned");
+// The plan of one instantiation (N, CH as in tc::Widths). A unit is TR = 2 MT
+// image rows x 64 columns: MT 64-pixel GEMM tiles (image rows) per MMA
+// warpgroup, MT * N/2 accumulators a thread (64 at every instantiated width:
+// (128, 16, 1), (64, 4, 2), (32, 1, 4)). A 128x128 tile of the flagship is 128
+// units, so the scene's call of one tile fills the card.
+template <int N_, int CH_, int MT_>
+struct Plan {
+  static constexpr int N = N_;
+  static constexpr int CH = CH_;
+  static constexpr int MT = MT_;
+  static constexpr int HN = (CH + 7) / 8 * 8;
+  static constexpr int NACC = N / 2;
+  static constexpr int QB = N * 16;
+  static constexpr int TR = 2 * MT;               // image rows of a unit
+  static constexpr int PH = TR + 2;               // rows of its patch (halo 1)
+  static constexpr int BOX_BYTES = PH * PW * 16;  // one channel octet of the patch, [row][col][8]
+  // its place in a stage, padded to TMA's 128-byte alignment of a destination
+  static constexpr int BOX = (BOX_BYTES + 127) / 128 * 128;
+  static constexpr int A_CHUNK = 2 * BOX;         // a chunk's two octets
+  static constexpr int W_SLAB = 2 * QB;           // one (chunk, tap) slab [octet][N][8]
+  static constexpr int W_CHUNK = TAPS * W_SLAB;   // a chunk's nine slabs, contiguous in the pack
+  static constexpr int STAGE = A_CHUNK + W_CHUNK; // the patch, then the nine slabs
+  static constexpr int STAGE_TX = 2 * BOX_BYTES + W_CHUNK;  // the bytes a chunk's copies bring
+  static constexpr int XPLANE = TR * TWX * 16;    // one octet of the unit's own pixels
+  static constexpr int XCHUNK = 2 * XPLANE + W_SLAB;  // a projection chunk: x and its slab
+  static constexpr int KP = STAGE / XCHUNK;       // projection chunks a stage
+  // The epilogue's per-channel vectors, staged once: bias, bias2, next_a, next_c.
+  static constexpr int VEC_BYTES = 4 * N * 4;
+  static constexpr int HEAD_W_BYTES = 2 * N * HN * 4;
+  // ---- the body kernel: ring stages; the handed-over f32 tiles, a pixel's
+  // row padded ----
+  static constexpr int NS_BODY = N == 128 ? 3 : 4;
+  static constexpr int T_ROW = (N + 8) * 4;
+  static constexpr int T_TILE = TWX * T_ROW;      // one image row's tile
+  static constexpr int BODY_SMEM =
+      128 + NS_BODY * STAGE + TR * T_TILE + VEC_BYTES + (2 * NS_BODY + 2 * TR) * 8;
+  // ---- the head kernel: a unit a block ----
+  static constexpr int NS_HEAD = 4;
+  // The head's y tile of one warpgroup, half of its channels at a time:
+  // [channel quad][64 pixels][4] f32, hi then lo.
+  static constexpr int YH_HALF = (N / 8) * Y_PLANE;
+  static constexpr int HEAD_SMEM =
+      128 + NS_HEAD * STAGE + HEAD_W_BYTES + VEC_BYTES + (2 * NS_HEAD + 1) * 8;
+  static_assert(KP >= 1, "a stage holds a projection chunk");
+  static_assert(STAGE % 128 == 0 && XPLANE % 128 == 0, "TMA destinations are 128-byte aligned");
+  static_assert(BODY_SMEM <= kSmemMax && HEAD_SMEM <= kSmemMax, "a block's shared memory");
+  static_assert(NS_HEAD * STAGE >= 4 * YH_HALF, "the head's y tiles must fit over the ring");
+};
 
-// ---- the body kernel (f1.conv1, f1.conv2 + proj, f2.conv1): persistent ----
 // Warpgroups 0 and 1 multiply, warpgroup 2 runs the epilogue, warp 12 loads.
-// A block walks units with a stride of the grid; the loads run ahead across
-// units, and the MMA warpgroups hand each finished tile to the epilogue
-// warpgroup through shared memory and go on to the next unit, so neither a
-// unit's fill nor its epilogue leaves the tensor cores idle.
 constexpr int kBodyThreads = 416;
-constexpr int NS_BODY = 3;               // ring stages
-constexpr int T_ROW = (N + 8) * 4;       // a pixel's f32 row in a handed-over tile, padded
-constexpr int T_TILE = TWX * T_ROW;      // one MMA warpgroup's tile: 34 KB
-constexpr int BODY_SMEM = 128 + NS_BODY * STAGE + TR * T_TILE + VEC_BYTES + (2 * NS_BODY + 4) * 8;
-static_assert(BODY_SMEM <= 232448, "a block's shared memory");
-
-// ---- the head kernel (f2.conv2 + y1 + head): a unit a block ----
 constexpr int kHeadThreads = 288;        // MMA warpgroups 0 and 1, producer warp 8
-constexpr int NS_HEAD = 4;
-// The head's y tile of one warpgroup, half of its channels at a time:
-// [channel quad][64 pixels][4] f32, hi then lo.
-constexpr int YH_HALF = (N / 8) * Y_PLANE;  // 16 KB
-constexpr int HEAD_SMEM = 128 + NS_HEAD * STAGE + HEAD_W_BYTES + VEC_BYTES + (2 * NS_HEAD + 1) * 8;
-static_assert(NS_HEAD * STAGE >= TR * 2 * YH_HALF, "the head's y tiles must fit over the ring");
-static_assert(HEAD_SMEM <= 232448, "a block's shared memory");
-
-// mbar_wait with its loop inside the PTX, so the compiler sees no divergent
-// branch around the wgmma that follow (a branch there makes ptxas serialize
-// them, C7520). It traps, as mbar_wait does, after about two seconds.
-__device__ __forceinline__ void mbar_wait_ptx(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.lt.u64 p, t1, 4000000000;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One arrival on the barrier from the thread whose lane is 0, predicated in
-// the PTX (no branch).
-__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.eq.s32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-      "}\n" ::"r"(bar),
-      "r"(lane)
-      : "memory");
-}
-
-// Pin the accumulators at a pipeline stage's edges (an empty asm that reads
-// and writes each), so the compiler moves no definition of them into a stage
-// of wgmma in flight.
-__device__ __forceinline__ void fence_acc(float (&acc)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
 
 // TMA: the box at (channel c, column x, row y, image b) of a 4-D tensor map;
 // elements outside the tensor land as zeros.
@@ -1082,16 +1370,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 struct Unit {
   int x0, y0, b;
 };
-__device__ __forceinline__ Unit unit_at(int u, int units_x, int units_y) {
+__device__ __forceinline__ Unit unit_at(int u, int units_x, int units_y, int tr) {
   Unit r;
   r.x0 = (u % units_x) * TWX;
-  r.y0 = ((u / units_x) % units_y) * TR;
+  r.y0 = ((u / units_x) % units_y) * tr;
   r.b = u / (units_x * units_y);
   return r;
 }
 
 // The per-channel vectors into shared memory (0 for one that is not given),
 // by nthreads threads from thread t.
+template <int N>
 __device__ __forceinline__ void load_vecs(float* vec, const float* bias, const float* bias2,
                                           const float* next_a, const float* next_c, int t,
                                           int nthreads) {
@@ -1108,66 +1397,69 @@ __device__ __forceinline__ void load_vecs(float* vec, const float* bias, const f
 // the patch (two octets, halo 1) and its nine weight slabs, then up to KP
 // projection chunks a stage (X at the unit's own pixels, one slab each).
 // Returns the next stage.
-template <int NS>
+template <class P, int NS>
 __device__ __forceinline__ int produce_unit(int g, uint32_t ring, uint32_t full, uint32_t empty,
                                             const CUtensorMap* patch_map,
                                             const CUtensorMap* x_map, int n1, int n2,
                                             const unsigned char* wsrc, Unit un) {
-  const int nstages = n1 + (n2 + KP - 1) / KP;
+  const int nstages = n1 + (n2 + P::KP - 1) / P::KP;
   for (int s = 0; s < nstages; ++s, ++g) {
     const int st = g % NS;
     mbar_wait_ptx(empty + 8 * st, ((g / NS) & 1) ^ 1);
-    const uint32_t stage = ring + st * STAGE;
+    const uint32_t stage = ring + st * P::STAGE;
     const uint32_t bar = full + 8 * st;
     if (s < n1) {
-      mbar_arrive_expect_tx(bar, STAGE);
+      mbar_arrive_expect_tx(bar, P::STAGE_TX);
       tma_load_4d(stage, patch_map, s * CK, un.x0 - 1, un.y0 - 1, un.b, bar);
-      tma_load_4d(stage + BOX, patch_map, s * CK + 8, un.x0 - 1, un.y0 - 1, un.b, bar);
-      bulk_load(stage + A_CHUNK, wsrc + (size_t)s * W_CHUNK, W_CHUNK, bar);
+      tma_load_4d(stage + P::BOX, patch_map, s * CK + 8, un.x0 - 1, un.y0 - 1, un.b, bar);
+      bulk_load(stage + P::A_CHUNK, wsrc + (size_t)s * P::W_CHUNK, P::W_CHUNK, bar);
     } else {
-      const int j0 = (s - n1) * KP;
-      const int k = min(KP, n2 - j0);
-      mbar_arrive_expect_tx(bar, k * XCHUNK);
+      const int j0 = (s - n1) * P::KP;
+      const int k = min(P::KP, n2 - j0);
+      mbar_arrive_expect_tx(bar, k * P::XCHUNK);
       for (int j = 0; j < k; ++j) {
         const int c = j0 + j;
-        const uint32_t a0 = stage + j * 2 * XPLANE;
+        const uint32_t a0 = stage + j * 2 * P::XPLANE;
         tma_load_4d(a0, x_map, c * CK, un.x0, un.y0, un.b, bar);
-        tma_load_4d(a0 + XPLANE, x_map, c * CK + 8, un.x0, un.y0, un.b, bar);
-        bulk_load(stage + KP * 2 * XPLANE + j * W_SLAB,
-                  wsrc + (size_t)n1 * W_CHUNK + (size_t)c * W_SLAB, W_SLAB, bar);
+        tma_load_4d(a0 + P::XPLANE, x_map, c * CK + 8, un.x0, un.y0, un.b, bar);
+        bulk_load(stage + P::KP * 2 * P::XPLANE + j * P::W_SLAB,
+                  wsrc + (size_t)n1 * P::W_CHUNK + (size_t)c * P::W_SLAB, P::W_SLAB, bar);
       }
     }
   }
   return g;
 }
 
-// One unit's sums for the warpgroup of row wg, from ring stage g on, onto
-// acc: the 3x3 chunks (9 taps, one k16 step each, between two barrier
-// rounds; the two octet planes are the two core matrices along K and every
-// tap is a constant offset from two descriptors: the address field counts
-// 16 bytes and shared addresses stay under 256 KB, so the sum never carries),
-// then the projection's chunks, KP a stage. The order of the sums is that of
-// the route before this one. Every stage is released when read. Returns the
-// next stage. Without from_acc the first product starts the sums (acc is not
-// read), where 0 would: the same sums.
-template <int NS>
-__device__ __forceinline__ int mma_unit(float (&acc)[NACC], bool from_acc, int g, uint32_t ring,
-                                        uint32_t full, uint32_t empty, int n1, int n2, int wg,
-                                        int lane) {
+// One unit's sums for the warpgroup wg (image rows MT*wg .. MT*wg + MT-1),
+// from ring stage g on, onto acc: the 3x3 chunks (9 taps x MT tiles, one k16
+// step each, between two barrier rounds; the two octet planes are the two
+// core matrices along K and every tap and tile is a constant offset from two
+// descriptors: the address field counts 16 bytes and shared addresses stay
+// under 256 KB, so the sum never carries), then the projection's chunks, KP a
+// stage. The order of the sums is that of the route before this one. Every
+// stage is released when read. Returns the next stage. Without from_acc the
+// first product starts the sums (acc is not read), where 0 would: the same
+// sums.
+template <class P, int NS>
+__device__ __forceinline__ int mma_unit(float (&acc)[P::MT][P::NACC], bool from_acc, int g,
+                                        uint32_t ring, uint32_t full, uint32_t empty, int n1,
+                                        int n2, int wg, int lane) {
   for (int s = 0; s < n1; ++s, ++g) {
     const int st = g % NS;
     mbar_wait_ptx(full + 8 * st, (g / NS) & 1);
-    const uint32_t stage = ring + st * STAGE;
-    const uint64_t da = smem_desc(stage + wg * PW * 16, BOX, 128);
-    const uint64_t db = smem_desc(stage + A_CHUNK, QB, 128);
+    const uint32_t stage = ring + st * P::STAGE;
+    const uint64_t da = smem_desc(stage + wg * P::MT * PW * 16, P::BOX, 128);
+    const uint64_t db = smem_desc(stage + P::A_CHUNK, P::QB, 128);
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
     for (int tap = 0; tap < TAPS; ++tap) {
       const int ky = tap / 3;
       const int kx = tap - 3 * ky;
-      wgmma_bf16(acc, da + ky * PW + kx, db + tap * (W_SLAB / 16),
-                 tap > 0 || s > 0 || from_acc);
+#pragma unroll
+      for (int mt = 0; mt < P::MT; ++mt)
+        wgmma_bf16(acc[mt], da + (mt + ky) * PW + kx, db + tap * (P::W_SLAB / 16),
+                   tap > 0 || s > 0 || from_acc);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -1176,17 +1468,19 @@ __device__ __forceinline__ int mma_unit(float (&acc)[NACC], bool from_acc, int g
     if (s > 0) mbar_arrive_lane0(empty + 8 * ((g - 1) % NS), lane);
   }
   for (int j = 0; j < n2; ++j) {
-    const int jj = j % KP;
+    const int jj = j % P::KP;
     if (jj == 0) {
       mbar_wait_ptx(full + 8 * (g % NS), (g / NS) & 1);
       ++g;
     }
-    const uint32_t stage = ring + ((g - 1) % NS) * STAGE;
-    const uint64_t da = smem_desc(stage + jj * 2 * XPLANE + wg * TWX * 16, XPLANE, 128);
-    const uint64_t db = smem_desc(stage + KP * 2 * XPLANE + jj * W_SLAB, QB, 128);
+    const uint32_t stage = ring + ((g - 1) % NS) * P::STAGE;
+    const uint64_t da =
+        smem_desc(stage + jj * 2 * P::XPLANE + wg * P::MT * TWX * 16, P::XPLANE, 128);
+    const uint64_t db = smem_desc(stage + P::KP * 2 * P::XPLANE + jj * P::W_SLAB, P::QB, 128);
     fence_acc(acc);
     wgmma_fence();
-    wgmma_bf16(acc, da, db);
+#pragma unroll
+    for (int mt = 0; mt < P::MT; ++mt) wgmma_bf16(acc[mt], da + mt * TWX, db);
     wgmma_commit();
     wgmma_wait<1>();
     fence_acc(acc);
@@ -1209,6 +1503,11 @@ __device__ __forceinline__ int mma_unit(float (&acc)[NACC], bool from_acc, int g
 // slabs [2][N][8], then one slab per chunk of X.
 // Outputs: out = v (f32) when given; out_act = bf16(relu(next_a * v +
 // next_c)), the next convolution's operand.
+// Persistent: a block walks units with a stride of the grid; the loads run
+// ahead across units, and the MMA warpgroups hand each finished tile to the
+// epilogue warpgroup through shared memory and go on to the next unit, so
+// neither a unit's fill nor its epilogue leaves the tensor cores idle.
+template <int N, int CH, int MT>
 __global__ void __launch_bounds__(kBodyThreads, 1)
 conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
                  const __grid_constant__ CUtensorMap x_map, int n1, int n2,
@@ -1217,17 +1516,19 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
                  __nv_bfloat16* __restrict__ out_act, const float* __restrict__ next_a,
                  const float* __restrict__ next_c, int H, int W, int units_x, int units_y,
                  int units) {
+  using P = Plan<N, CH, MT>;
+  constexpr int TR = P::TR, NS = P::NS_BODY, T_ROW = P::T_ROW, T_TILE = P::T_TILE;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 127u) & ~127u;
   unsigned char* ring_ptr = smem_raw + (ring - raw);
-  unsigned char* tiles = ring_ptr + NS_BODY * STAGE;  // [TR] handed-over f32 tiles
+  unsigned char* tiles = ring_ptr + NS * P::STAGE;  // [TR] handed-over f32 tiles
   float* vec = reinterpret_cast<float*>(tiles + TR * T_TILE);
-  const uint32_t bars = smem_u32(vec) + VEC_BYTES;
-  const uint32_t full = bars;                     // [NS] expect_tx + the copies' bytes
-  const uint32_t empty = bars + 8 * NS_BODY;      // [NS] the MMA warps' arrivals
-  const uint32_t tfull = bars + 16 * NS_BODY;     // [TR] a tile was handed over
-  const uint32_t tempty = tfull + 8 * TR;         // [TR] the epilogue has read it
+  const uint32_t bars = smem_u32(vec) + P::VEC_BYTES;
+  const uint32_t full = bars;                // [NS] expect_tx + the copies' bytes
+  const uint32_t empty = bars + 8 * NS;      // [NS] the MMA warps' arrivals
+  const uint32_t tfull = bars + 16 * NS;     // [TR] a tile was handed over
+  const uint32_t tempty = tfull + 8 * TR;    // [TR] the epilogue has read it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -1235,7 +1536,7 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
 
   if (tid == 0) {
-    for (int s = 0; s < NS_BODY; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);
     }
@@ -1246,31 +1547,35 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  if (warp >= 8 && warp < 12) load_vecs(vec, bias, bias2, next_a, next_c, tid - 256, 128);
+  if (warp >= 8 && warp < 12) load_vecs<N>(vec, bias, bias2, next_a, next_c, tid - 256, 128);
   __syncthreads();
 
   if (warp < 8) {
-    // ---- MMA warpgroups: warpgroup wg multiplies row wg of each unit ----
+    // ---- MMA warpgroups: warpgroup wg multiplies rows MT*wg .. of each unit ----
     const int wg = warp >> 2;
     const int wq = warp & 3;
-    unsigned char* tile = tiles + wg * T_TILE;
     int g = 0;
-    float acc[NACC];
+    float acc[MT][P::NACC];
     for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
-      g = mma_unit<NS_BODY>(acc, false, g, ring, full, empty, n1, n2, wg, lane);
-      // Hand the tile over once the epilogue has read the previous one.
-      mbar_wait_ptx(tempty + 8 * wg, (k & 1) ^ 1);
+      g = mma_unit<P, NS>(acc, false, g, ring, full, empty, n1, n2, wg, lane);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int px = wq * 16 + (lane >> 2) + 8 * half;
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = wg * MT + mt;
+        unsigned char* tile = tiles + r * T_TILE;
+        // Hand the tile over once the epilogue has read the previous one.
+        mbar_wait_ptx(tempty + 8 * r, (k & 1) ^ 1);
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          const int col = 8 * j + 2 * (lane & 3);
-          *reinterpret_cast<float2*>(tile + px * T_ROW + col * 4) =
-              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            *reinterpret_cast<float2*>(tile + px * T_ROW + col * 4) =
+                make_float2(acc[mt][4 * j + 2 * half], acc[mt][4 * j + 2 * half + 1]);
+          }
         }
+        mbar_arrive(tfull + 8 * r);
       }
-      mbar_arrive(tfull + 8 * wg);
     }
   } else if (warp < 12) {
     // ---- epilogue warpgroup: 8 channels of a pixel a thread and piece ----
@@ -1280,7 +1585,7 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
     const float* s_next_a = vec + 2 * N;
     const float* s_next_c = vec + 3 * N;
     for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
-      const Unit un = unit_at(u, units_x, units_y);
+      const Unit un = unit_at(u, units_x, units_y, TR);
 #pragma unroll 1
       for (int r = 0; r < TR; ++r) {
         mbar_wait_ptx(tfull + 8 * r, k & 1);
@@ -1333,41 +1638,44 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap patch_map,
     const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wpack);
     int g = 0;
     for (int u = blockIdx.x; u < units; u += gridDim.x)
-      g = produce_unit<NS_BODY>(g, ring, full, empty, &patch_map, &x_map, n1, n2, wsrc,
-                                unit_at(u, units_x, units_y));
+      g = produce_unit<P, NS>(g, ring, full, empty, &patch_map, &x_map, n1, n2, wsrc,
+                              unit_at(u, units_x, units_y, TR));
   }
 }
 
-// The last launch: out[b, y, x, :16] = (res + the 3x3 sums of patch_map's
-// operand + bias) @ head_w + head_b. The head is 3xTF32 (the same 48
-// products in the same order as conv_tc_kernel's head): each MMA warpgroup
-// writes its y tile, split into TF32 hi and lo, over its part of the idle
-// ring, half of its channels at a time, and runs the head's k8 steps on it.
-// A unit a block; the residual starts the sums.
+// The last launch: out[b, y, x, :CH] = (res + the 3x3 sums of patch_map's
+// operand + bias) @ head_w + head_b. The head is 3xTF32 (the same products in
+// the same order as conv_tc_kernel's head): each MMA warpgroup writes each of
+// its y tiles, split into TF32 hi and lo, over its part of the idle ring, half
+// of its channels at a time, and runs the head's k8 steps on it. A unit a
+// block; the residual starts the sums.
+template <int N, int CH, int MT>
 __global__ void __launch_bounds__(kHeadThreads, 1)
 conv_bf16_head_kernel(const __grid_constant__ CUtensorMap patch_map, int n1,
                       const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bias,
                       const float* __restrict__ res, const float* __restrict__ head_pack,
                       const float* __restrict__ head_bias, float* __restrict__ out, int H,
                       int W) {
+  using P = Plan<N, CH, MT>;
+  constexpr int NS = P::NS_HEAD, HN = P::HN, YH_HALF = P::YH_HALF;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 127u) & ~127u;
   unsigned char* ring_ptr = smem_raw + (ring - raw);
-  const uint32_t h_smem = ring + NS_HEAD * STAGE;  // the head's weights, hi then lo per slab
-  float* vec = reinterpret_cast<float*>(ring_ptr + NS_HEAD * STAGE + HEAD_W_BYTES);
-  const uint32_t bars = smem_u32(vec) + VEC_BYTES;
+  const uint32_t h_smem = ring + NS * P::STAGE;  // the head's weights, hi then lo per slab
+  float* vec = reinterpret_cast<float*>(ring_ptr + NS * P::STAGE + P::HEAD_W_BYTES);
+  const uint32_t bars = smem_u32(vec) + P::VEC_BYTES;
   const uint32_t full = bars;                // [NS] expect_tx + the copies' bytes
-  const uint32_t empty = bars + 8 * NS_HEAD; // [NS] the MMA warps' arrivals
-  const uint32_t full_h = bars + 16 * NS_HEAD;  // the head's weights have landed
+  const uint32_t empty = bars + 8 * NS;      // [NS] the MMA warps' arrivals
+  const uint32_t full_h = bars + 16 * NS;    // the head's weights have landed
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
-  const Unit un = {(int)blockIdx.x * TWX, (int)blockIdx.y * TR, (int)blockIdx.z};
+  const Unit un = {(int)blockIdx.x * TWX, (int)blockIdx.y * P::TR, (int)blockIdx.z};
 
   if (tid == 0) {
-    for (int s = 0; s < NS_HEAD; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);
     }
@@ -1375,103 +1683,102 @@ conv_bf16_head_kernel(const __grid_constant__ CUtensorMap patch_map, int n1,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  if (warp < 8) load_vecs(vec, bias, nullptr, nullptr, nullptr, tid, 256);
+  if (warp < 8) load_vecs<N>(vec, bias, nullptr, nullptr, nullptr, tid, 256);
   __syncthreads();
 
   if (warp < 8) {
     const int wg = warp >> 2;
     const int wq = warp & 3;
-    const int gy = un.y0 + wg;
-    float acc[NACC];
+    float acc[MT][P::NACC];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
-      const bool live = gy < H && gx < W;
-      const size_t base = (((size_t)un.b * H + gy) * W + gx) * N + 2 * (lane & 3);
+    for (int mt = 0; mt < MT; ++mt) {
+      const int gy = un.y0 + wg * MT + mt;
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        // The residual starts the sums; its loads overlap the pipeline's fill.
-        float2 r = make_float2(0.f, 0.f);
-        if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
-        acc[4 * j + 2 * half] = r.x;
-        acc[4 * j + 2 * half + 1] = r.y;
+      for (int half = 0; half < 2; ++half) {
+        const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
+        const bool live = gy < H && gx < W;
+        const size_t base = (((size_t)un.b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          // The residual starts the sums; its loads overlap the pipeline's fill.
+          float2 r = make_float2(0.f, 0.f);
+          if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
+          acc[mt][4 * j + 2 * half] = r.x;
+          acc[mt][4 * j + 2 * half + 1] = r.y;
+        }
       }
     }
-    mma_unit<NS_HEAD>(acc, true, 0, ring, full, empty, n1, 0, wg, lane);
+    mma_unit<P, NS>(acc, true, 0, ring, full, empty, n1, 0, wg, lane);
 
     // Both warpgroups have finished reading the ring.
     named_barrier(1, 256);
     mbar_wait_ptx(full_h, 0);
     unsigned char* y_buf = ring_ptr + wg * 2 * YH_HALF;
     const uint32_t y_smem = ring + wg * 2 * YH_HALF;
-    float hacc[HEAD_N / 2];
 #pragma unroll
-    for (int i = 0; i < HEAD_N / 2; ++i) hacc[i] = 0.f;
+    for (int mt = 0; mt < MT; ++mt) {
+      float hacc[HN / 2];
 #pragma unroll
-    for (int kh = 0; kh < 2; ++kh) {
+      for (int i = 0; i < HN / 2; ++i) hacc[i] = 0.f;
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+          for (int jh = 0; jh < N / 16; ++jh) {
+            const int j = kh * (N / 16) + jh;  // this half's column groups
+            const int col = 8 * j + 2 * (lane & 3);
+            const float2 bv = *reinterpret_cast<const float2*>(vec + col);
+            float2 v;
+            v.x = acc[mt][4 * j + 2 * half] + bv.x;
+            v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
+            float2 hi, lo;
+            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+            const int lc = col - kh * N / 2;
+            unsigned char* dst = y_buf + (lc >> 2) * Y_PLANE + px * 16 + (lc & 3) * 4;
+            *reinterpret_cast<float2*>(dst) = hi;
+            *reinterpret_cast<float2*>(dst + YH_HALF) = lo;
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(2 + wg, 128);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < N / 16; ++k) {
+          const int ks = kh * N / 16 + k;  // the k8 step over all N channels
+          constexpr int HQ = HN * 16;      // bytes of one channel quad of head weights
+          const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HN * 4) + (ks & 1) * 2 * HQ;
+          const uint64_t dbh = smem_desc(hw, HQ, 128);
+          const uint64_t dbl = smem_desc(hw + CK * HN * 4, HQ, 128);
+          const uint64_t dah = smem_desc(y_smem + k * 2 * Y_PLANE, Y_PLANE, 128);
+          const uint64_t dal = smem_desc(y_smem + YH_HALF + k * 2 * Y_PLANE, Y_PLANE, 128);
+          wgmma_tf32(hacc, dal, dbh);
+          wgmma_tf32(hacc, dah, dbl);
+          wgmma_tf32(hacc, dah, dbh);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < HN / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+        // This half's tile is read; the next one may overwrite it.
+        named_barrier(2 + wg, 128);
+      }
+      const int gy = un.y0 + wg * MT + mt;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int px = wq * 16 + (lane >> 2) + 8 * half;
-#pragma unroll
-        for (int jh = 0; jh < N / 16; ++jh) {
-          const int j = kh * (N / 16) + jh;  // this half's column groups
-          const int col = 8 * j + 2 * (lane & 3);
-          const float2 bv = *reinterpret_cast<const float2*>(vec + col);
-          float2 v;
-          v.x = acc[4 * j + 2 * half] + bv.x;
-          v.y = acc[4 * j + 2 * half + 1] + bv.y;
-          float2 hi, lo;
-          hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
-          hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
-          const int lc = col - kh * N / 2;
-          unsigned char* dst = y_buf + (lc >> 2) * Y_PLANE + px * 16 + (lc & 3) * 4;
-          *reinterpret_cast<float2*>(dst) = hi;
-          *reinterpret_cast<float2*>(dst + YH_HALF) = lo;
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_barrier(2 + wg, 128);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < N / 16; ++k) {
-        const int ks = kh * N / 16 + k;  // the k8 step over all 128 channels
-        constexpr int HQ = HEAD_N * 16;  // bytes of one channel quad of head weights
-        const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HEAD_N * 4) + (ks & 1) * 2 * HQ;
-        const uint64_t dbh = smem_desc(hw, HQ, 128);
-        const uint64_t dbl = smem_desc(hw + CK * HEAD_N * 4, HQ, 128);
-        const uint64_t dah = smem_desc(y_smem + k * 2 * Y_PLANE, Y_PLANE, 128);
-        const uint64_t dal = smem_desc(y_smem + YH_HALF + k * 2 * Y_PLANE, Y_PLANE, 128);
-        wgmma_tf32(hacc, dal, dbh);
-        wgmma_tf32(hacc, dah, dbl);
-        wgmma_tf32(hacc, dah, dbh);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < HEAD_N / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
-      // This half's tile is read; the next one may overwrite it.
-      named_barrier(2 + wg, 128);
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
-      if (gy >= H || gx >= W) continue;
-      const size_t base = (((size_t)un.b * H + gy) * W + gx) * HEAD_N + 2 * (lane & 3);
-#pragma unroll
-      for (int j = 0; j < HEAD_N / 8; ++j) {
-        const float2 hb = *reinterpret_cast<const float2*>(head_bias + 8 * j + 2 * (lane & 3));
-        float2 v;
-        v.x = hacc[4 * j + 2 * half] + hb.x;
-        v.y = hacc[4 * j + 2 * half + 1] + hb.y;
-        *reinterpret_cast<float2*>(out + base + 8 * j) = v;
+        const int gx = un.x0 + wq * 16 + (lane >> 2) + 8 * half;
+        if (gy >= H || gx >= W) continue;
+        store_head<CH>(out + (((size_t)un.b * H + gy) * W + gx) * CH, hacc, half, lane, head_bias);
       }
     }
   } else if (lane == 0) {
     // ---- producer warp ----
-    mbar_arrive_expect_tx(full_h, HEAD_W_BYTES);
-    bulk_load(h_smem, head_pack, HEAD_W_BYTES, full_h);
-    produce_unit<NS_HEAD>(0, ring, full, empty, &patch_map, &patch_map, n1, 0,
-                          reinterpret_cast<const unsigned char*>(wpack), un);
+    mbar_arrive_expect_tx(full_h, P::HEAD_W_BYTES);
+    bulk_load(h_smem, head_pack, P::HEAD_W_BYTES, full_h);
+    produce_unit<P, NS>(0, ring, full, empty, &patch_map, &patch_map, n1, 0,
+                        reinterpret_cast<const unsigned char*>(wpack), un);
   }
 }
 
@@ -1512,31 +1819,35 @@ cudaError_t opt_in(Kernel kern, int smem, bool (&done)[64]) {
   return err;
 }
 
+template <int N, int CH, int MT>
 cudaError_t launch_body(const CUtensorMap& patch_map, const CUtensorMap& x_map, int n1, int n2,
                         const void* wpack, const float* bias, const float* bias2, float* out,
                         void* out_act, const float* next_a, const float* next_c, int B, int H,
                         int W, int sms, cudaStream_t stream) {
+  using P = Plan<N, CH, MT>;
   static bool done[64] = {};
-  cudaError_t err = opt_in(conv_bf16_kernel, BODY_SMEM, done);
+  cudaError_t err = opt_in(conv_bf16_kernel<N, CH, MT>, P::BODY_SMEM, done);
   if (err != cudaSuccess) return err;
   const int units_x = (W + TWX - 1) / TWX;
-  const int units_y = (H + TR - 1) / TR;
+  const int units_y = (H + P::TR - 1) / P::TR;
   const int units = units_x * units_y * B;
-  conv_bf16_kernel<<<units < sms ? units : sms, kBodyThreads, BODY_SMEM, stream>>>(
+  conv_bf16_kernel<N, CH, MT><<<units < sms ? units : sms, kBodyThreads, P::BODY_SMEM, stream>>>(
       patch_map, x_map, n1, n2, reinterpret_cast<const __nv_bfloat16*>(wpack), bias, bias2, out,
       reinterpret_cast<__nv_bfloat16*>(out_act), next_a, next_c, H, W, units_x, units_y, units);
   return cudaGetLastError();
 }
 
+template <int N, int CH, int MT>
 cudaError_t launch_head(const CUtensorMap& patch_map, int n1, const void* wpack,
                         const float* bias, const float* res, const float* head_pack,
                         const float* head_bias, float* out, int B, int H, int W,
                         cudaStream_t stream) {
+  using P = Plan<N, CH, MT>;
   static bool done[64] = {};
-  cudaError_t err = opt_in(conv_bf16_head_kernel, HEAD_SMEM, done);
+  cudaError_t err = opt_in(conv_bf16_head_kernel<N, CH, MT>, P::HEAD_SMEM, done);
   if (err != cudaSuccess) return err;
-  dim3 grid((W + TWX - 1) / TWX, (H + TR - 1) / TR, B);
-  conv_bf16_head_kernel<<<grid, kHeadThreads, HEAD_SMEM, stream>>>(
+  dim3 grid((W + TWX - 1) / TWX, (H + P::TR - 1) / P::TR, B);
+  conv_bf16_head_kernel<N, CH, MT><<<grid, kHeadThreads, P::HEAD_SMEM, stream>>>(
       patch_map, n1, reinterpret_cast<const __nv_bfloat16*>(wpack), bias, res, head_pack,
       head_bias, out, H, W);
   return cudaGetLastError();
@@ -1606,41 +1917,59 @@ extern "C" int hr_tail_bf16_direct_launch(const float* sr, const float* dem, int
                       true, stream_ptr);
 }
 
+// Returned by the tensor-core launchers for a (cm, ch) they were not
+// instantiated for: they never take another route instead.
+constexpr int kNotInstantiated = 200000;
+
 // Tensor-core route: the same chain, every convolution through
-// tc::conv_tc_kernel. Needs cm == 128, ch == 16, ca % 4 == 0, cb % 4 == 0 and
-// (ca + cb) % 16 == 0 (the wrapper checks). weights as above (the affines and
-// biases are read from it); packs: tc::N_PACKS device pointers in
-// TC_PACK_KEYS order, the hi/lo TF32 weight slabs.
-extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H,
-                                 int W, int ca, int cb, const void* const* weights,
-                                 const void* const* packs, float* buf_p,
-                                 float* buf_y, float* out, void* stream_ptr) {
-  const float* const* wt = reinterpret_cast<const float* const*>(weights);
-  const float* const* pk = reinterpret_cast<const float* const*>(packs);
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  constexpr int CM = tc::N;
+// tc::conv_tc_kernel<N, CH, MT>.
+template <int N, int CH, int MT>
+static int tc_chain(const float* sr, const float* dem, int B, int H, int W, int ca, int cb,
+                    const float* const* wt, const float* const* pk, float* buf_p, float* buf_y,
+                    float* out, cudaStream_t stream) {
   const float* none = nullptr;
   cudaError_t err;
   // y = conv1(relu(bn1 x))
-  err = tc::launch<false>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
-                          pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y, B, H,
-                          W, stream);
+  err = tc::launch<N, CH, MT, false>(sr, ca, dem, cb, wt[F1_A1], wt[F1_C1], none, 0, none, 0,
+                                     pk[tc::P_F1_W1], wt[F1_B1], none, none, none, none, buf_y,
+                                     B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
-  // y1 = conv2(relu(bn2 y)) + proj(x): the projection is ten more chunks of K
-  err = tc::launch<false>(buf_y, CM, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
-                          pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
-                          buf_p, B, H, W, stream);
+  // y1 = conv2(relu(bn2 y)) + proj(x): the projection is (ca + cb) / 16 more chunks of K
+  err = tc::launch<N, CH, MT, false>(buf_y, N, none, 0, wt[F1_A2], wt[F1_C2], sr, ca, dem, cb,
+                                     pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], none, none, none,
+                                     buf_p, B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
   // z = conv1(relu(bn1 y1))
-  err = tc::launch<false>(buf_p, CM, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
-                          pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y, B, H,
-                          W, stream);
+  err = tc::launch<N, CH, MT, false>(buf_p, N, none, 0, wt[F2_A1], wt[F2_C1], none, 0, none, 0,
+                                     pk[tc::P_F2_W1], wt[F2_B1], none, none, none, none, buf_y,
+                                     B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
   // out = head(conv2(relu(bn2 z)) + y1): y2 never reaches device memory
-  err = tc::launch<true>(buf_y, CM, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
-                         pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
-                         wt[HEAD_B], out, B, H, W, stream);
+  err = tc::launch<N, CH, MT, true>(buf_y, N, none, 0, wt[F2_A2], wt[F2_C2], none, 0, none, 0,
+                                    pk[tc::P_F2_W2], wt[F2_B2], none, buf_p, pk[tc::P_HEAD_W],
+                                    wt[HEAD_B], out, B, H, W, stream);
   return (int)err;
+}
+
+// Tensor-core route. Needs (cm, ch) among the instantiated widths (TC_WIDTHS
+// in hr_tail.py), ca % 4 == 0, cb % 4 == 0 and (ca + cb) % 16 == 0 (the
+// wrapper checks). weights as above (the affines and biases are read from
+// it); packs: tc::N_PACKS device pointers in TC_PACK_KEYS order, the hi/lo
+// TF32 weight slabs, the head's padded to HN columns.
+extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H, int W, int ca,
+                                 int cb, int cm, int ch, const void* const* weights,
+                                 const void* const* packs, float* buf_p, float* buf_y, float* out,
+                                 void* stream_ptr) {
+  const float* const* wt = reinterpret_cast<const float* const*>(weights);
+  const float* const* pk = reinterpret_cast<const float* const*>(packs);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (cm == 128 && ch == 16)
+    return tc_chain<128, 16, 2>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  if (cm == 64 && ch == 4)
+    return tc_chain<64, 4, 4>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  if (cm == 32 && ch == 1)
+    return tc_chain<32, 1, 4>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  return kNotInstantiated;
 }
 
 // ---- bf16 route: tensor maps and the chain ----
@@ -1714,11 +2043,12 @@ static cudaError_t sm_count(int* sms) {
 
 // The bf16 route's chain: the pre-pass, then the three body launches, each
 // storing the next one's operand, then the head's.
+template <int N, int CH, int MT>
 static int bf16_chain(const float* sr, const float* dem, int B, int H, int W, int ca, int cb,
                       const float* const* wt, const void* const* pk, void* x_act, void* x_raw,
                       void* act_a, void* act_b, float* y1, float* out, cudaStream_t stream) {
   namespace bf = tc::bf;
-  constexpr int CM = tc::N;
+  using P = bf::Plan<N, CH, MT>;
   const int cin = ca + cb;
   const float* none = nullptr;
   int sms = 0;
@@ -1732,43 +2062,47 @@ static int bf16_chain(const float* sr, const float* dem, int B, int H, int W, in
   if (err != cudaSuccess) return (int)err;
   CUtensorMap x_act_map, x_raw_map, a_map, b_map;
   int rc;
-  if ((rc = tensor_map(&x_act_map, x_act, cin, B, H, W, tc::PW, bf::PH)) != 0) return rc;
-  if ((rc = tensor_map(&x_raw_map, x_raw, cin, B, H, W, tc::TWX, bf::TR)) != 0) return rc;
-  if ((rc = tensor_map(&a_map, act_a, CM, B, H, W, tc::PW, bf::PH)) != 0) return rc;
-  if ((rc = tensor_map(&b_map, act_b, CM, B, H, W, tc::PW, bf::PH)) != 0) return rc;
+  if ((rc = tensor_map(&x_act_map, x_act, cin, B, H, W, tc::PW, P::PH)) != 0) return rc;
+  if ((rc = tensor_map(&x_raw_map, x_raw, cin, B, H, W, tc::TWX, P::TR)) != 0) return rc;
+  if ((rc = tensor_map(&a_map, act_a, N, B, H, W, tc::PW, P::PH)) != 0) return rc;
+  if ((rc = tensor_map(&b_map, act_b, N, B, H, W, tc::PW, P::PH)) != 0) return rc;
   // act_a = bf16(relu(f1.bn2(conv1(x_act))))
-  err = bf::launch_body(x_act_map, x_act_map, cin / tc::CK, 0, pk[tc::P_F1_W1], wt[F1_B1], none,
-                        nullptr, act_a, wt[F1_A2], wt[F1_C2], B, H, W, sms, stream);
+  err = bf::launch_body<N, CH, MT>(x_act_map, x_act_map, cin / tc::CK, 0, pk[tc::P_F1_W1],
+                                   wt[F1_B1], none, nullptr, act_a, wt[F1_A2], wt[F1_C2], B, H,
+                                   W, sms, stream);
   if (err != cudaSuccess) return (int)err;
   // y1 = conv2(act_a) + proj(x_raw), f32 for the last residual;
   // act_b = bf16(relu(f2.bn1(y1)))
-  err = bf::launch_body(a_map, x_raw_map, CM / tc::CK, cin / tc::CK, pk[tc::P_F1_W2_PW],
-                        wt[F1_B2], wt[F1_PB], y1, act_b, wt[F2_A1], wt[F2_C1], B, H, W, sms,
-                        stream);
+  err = bf::launch_body<N, CH, MT>(a_map, x_raw_map, N / tc::CK, cin / tc::CK,
+                                   pk[tc::P_F1_W2_PW], wt[F1_B2], wt[F1_PB], y1, act_b,
+                                   wt[F2_A1], wt[F2_C1], B, H, W, sms, stream);
   if (err != cudaSuccess) return (int)err;
   // act_a = bf16(relu(f2.bn2(conv1(act_b))))
-  err = bf::launch_body(b_map, b_map, CM / tc::CK, 0, pk[tc::P_F2_W1], wt[F2_B1], none, nullptr,
-                        act_a, wt[F2_A2], wt[F2_C2], B, H, W, sms, stream);
+  err = bf::launch_body<N, CH, MT>(b_map, b_map, N / tc::CK, 0, pk[tc::P_F2_W1], wt[F2_B1],
+                                   none, nullptr, act_a, wt[F2_A2], wt[F2_C2], B, H, W, sms,
+                                   stream);
   if (err != cudaSuccess) return (int)err;
   // out = head(conv2(act_a) + y1): y2 never reaches device memory
-  err = bf::launch_head(a_map, CM / tc::CK, pk[tc::P_F2_W2], wt[F2_B2], y1,
-                        reinterpret_cast<const float*>(pk[tc::P_HEAD_W]), wt[HEAD_B], out, B, H,
-                        W, stream);
+  err = bf::launch_head<N, CH, MT>(a_map, N / tc::CK, pk[tc::P_F2_W2], wt[F2_B2], y1,
+                                   reinterpret_cast<const float*>(pk[tc::P_HEAD_W]), wt[HEAD_B],
+                                   out, B, H, W, stream);
   return (int)err;
 }
 
 // bf16 route (the TPU kernel's mode="bf16"), the widths of hr_tail_tc_launch.
 // packs: tc::N_PACKS device pointers in TC_PACK_KEYS order, bf16 slabs for the
 // four convolutions and hi/lo TF32 slabs for the head. Scratch: x_act and
-// x_raw [B,H,W,ca+cb] bf16, act_a and act_b [B,H,W,128] bf16, y1 [B,H,W,128]
+// x_raw [B,H,W,ca+cb] bf16, act_a and act_b [B,H,W,cm] bf16, y1 [B,H,W,cm]
 // f32; every buffer 16-byte aligned. A tensor map that cannot be encoded
-// returns kEncodeFailed + its CUresult.
-// The layout of hr_tail_bf16_launch's arguments: 2 from the signature
-// below on (the route before it took 13 arguments and exported no number).
-extern "C" int hr_tail_bf16_abi() { return 2; }
+// returns kEncodeFailed + its CUresult; widths not instantiated,
+// kNotInstantiated.
+// The layout of the tensor-core launchers' arguments: 3 from the signatures
+// below on (cm and ch after cb, in hr_tail_tc_launch too); 2 before them;
+// the route before that took 13 arguments and exported no number.
+extern "C" int hr_tail_bf16_abi() { return 3; }
 
 extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int H, int W,
-                                   int ca, int cb, const void* const* weights,
+                                   int ca, int cb, int cm, int ch, const void* const* weights,
                                    const void* const* packs, void* x_act, void* x_raw,
                                    void* act_a, void* act_b, float* y1, float* out,
                                    void* stream_ptr) {
@@ -1780,6 +2114,14 @@ extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int
     if (reinterpret_cast<uintptr_t>(packs[i]) % 16) return (int)cudaErrorInvalidValue;
   const float* const* wt = reinterpret_cast<const float* const*>(weights);
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return bf16_chain(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b, y1, out,
-                    stream);
+  if (cm == 128 && ch == 16)
+    return bf16_chain<128, 16, 1>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a,
+                                  act_b, y1, out, stream);
+  if (cm == 64 && ch == 4)
+    return bf16_chain<64, 4, 2>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b,
+                                y1, out, stream);
+  if (cm == 32 && ch == 1)
+    return bf16_chain<32, 1, 4>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b,
+                                y1, out, stream);
+  return kNotInstantiated;
 }

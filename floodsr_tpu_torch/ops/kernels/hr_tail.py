@@ -14,8 +14,10 @@ a CPU tensor to :func:`hr_tail_reference`, the unfused chain with
 
 Two routes on the card, chosen from the channel counts alone
 (:func:`tc_eligible`): the tensor-core route (``wgmma`` implicit GEMM in
-3xTF32 with f32 accumulation; the flagship widths) and the direct route (f32
-FMA on the CUDA cores; any widths). Each counts its calls in
+3xTF32 with f32 accumulation; the (Cm, Ch) pairs of :data:`TC_WIDTHS`, which
+are the three HR layouts of the JAX package's ``ResUNetConfig.hr_s2d`` at the
+flagship's base widths) and the direct route (f32 FMA on the CUDA cores; any
+other widths). Each counts its calls in
 :data:`route_launches`. The tensor-core route reads its weights from a
 kernel-side pack (:func:`pack_hr_tail_tc`: hi/lo TF32 halves in the layout of
 the ``wgmma`` B operand), which the caller builds once per set of weights
@@ -29,7 +31,7 @@ biases and residual adds stay f32; at the four 3×3 convolutions and at the
 projection the activated operand and the weight are rounded to bf16 and
 multiplied in one pass with f32 accumulation; the head stays at three-pass
 precision. Two more routes carry it on the card, counted like the others:
-``"bf16"`` (``wgmma`` m64n128k16 in bf16 at the tensor-core widths, weights
+``"bf16"`` (``wgmma`` m64nNk16, N = Cm, in bf16 at the tensor-core widths, weights
 from :func:`pack_hr_tail_bf16`; each launch stores the next convolution's
 operand already activated and rounded, as bf16, and the next reads it by TMA;
 scratch :func:`bf16_scratch`) and ``"bf16_direct"`` (the direct kernels with
@@ -57,12 +59,18 @@ WEIGHT_KEYS = (
 
 #: The tensor-core route's pack, in the order the CUDA launcher indexes it:
 #: each entry names the weight matrices whose slabs one launch streams. The
-#: projection shortcut rides in f1.conv2's launch as ten more chunks of K.
+#: projection shortcut rides in f1.conv2's launch as (Ca+Cb)/16 more chunks of K.
 TC_PACK_KEYS = (("f1_w1",), ("f1_w2", "f1_pw"), ("f2_w1",), ("f2_w2",), ("head_w",))
 
-#: Widths the tensor-core kernels are instantiated for, and the input-channel
-#: chunk of one staged patch.
-TC_CM, TC_CH, TC_CK = 128, 16, 16
+#: (Cm, Ch) pairs the tensor-core kernels are instantiated for (the CUDA
+#: launchers' own list): hr_s2d = 4 (the flagship, 128 + 32 -> 128 -> 16), 2
+#: (64 + 32 -> 64 -> 4) and 1 (32 + 32 -> 32 -> 1) at base and fuse width 32.
+TC_WIDTHS = ((128, 16), (64, 4), (32, 1))
+#: The input-channel chunk of one staged patch, and the head's wgmma width
+#: unit: the packed head is ``Ch`` rounded up to 8 columns, zeros beyond Ch.
+TC_CK, TC_HEAD_N = 16, 8
+#: What a tensor-core launcher returns for a (Cm, Ch) it was not built for.
+NOT_INSTANTIATED = 200000
 
 #: hr_tail calls that launched the kernels since the last reset
 #: (ops.kernels.reset_launch_counts); each call is four kernel launches on
@@ -171,9 +179,14 @@ def hr_tail_reference_bf16(sr: torch.Tensor, dem: torch.Tensor, *weights) -> tor
 def tc_eligible(ca: int, cb: int, cm: int, ch: int) -> bool:
     """Whether the tensor-core kernels take these channel counts."""
     return (
-        cm == TC_CM and ch == TC_CH and ca > 0 and ca % 4 == 0 and cb % 4 == 0
+        (cm, ch) in TC_WIDTHS and ca > 0 and ca % 4 == 0 and cb % 4 == 0
         and (ca + cb) % TC_CK == 0
     )
+
+
+def head_columns(ch: int) -> int:
+    """The packed head's columns: ``ch`` rounded up to the wgmma's 8."""
+    return -(-ch // TC_HEAD_N) * TC_HEAD_N
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -196,6 +209,11 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32(x - hi)
 
 
+def _padded_head(w: torch.Tensor) -> torch.Tensor:
+    """The head's ``[Cm, Ch]`` with zero columns up to :func:`head_columns`."""
+    return F.pad(w, (0, head_columns(int(w.shape[-1])) - int(w.shape[-1])))
+
+
 def _tc_slabs(m: torch.Tensor) -> torch.Tensor:
     """``[taps..., Cin, Cout]`` → ``[Cin/16 * taps, 2, 4, Cout, 4]`` hi/lo slabs."""
     cin, cout = int(m.shape[-2]), int(m.shape[-1])
@@ -215,10 +233,13 @@ def pack_hr_tail_tc(weights) -> list[torch.Tensor]:
     (chunk-major), the hi halves then the lo halves (:func:`split_tf32`), each
     as ``[channel quad][Cout][4 channels]``, which is the no-swizzle K-major
     layout ``wgmma`` reads its B operand in. An entry of two matrices holds the
-    first one's slabs, then the second's. Build it once per set of weights, not
-    per call.
+    first one's slabs, then the second's. The head's Cout is padded to
+    :func:`head_columns` with zeros (``wgmma`` is at least 8 wide); the
+    kernels store only its first Ch columns. Build it once per set of weights,
+    not per call.
     """
     w = dict(zip(WEIGHT_KEYS, weights))
+    w["head_w"] = _padded_head(w["head_w"])
     return [
         torch.cat([_tc_slabs(w[key]) for key in keys]).contiguous() for keys in TC_PACK_KEYS
     ]
@@ -243,15 +264,16 @@ def pack_hr_tail_bf16(weights) -> list[torch.Tensor]:
     contiguous slab (chunk-major) of the bf16-rounded weights, as ``[channel
     octet][Cout][8 channels]``: the no-swizzle K-major layout of ``wgmma``'s
     B operand for a 2-byte type, one k16 step a slab. The head entry is the
-    tensor-core route's hi/lo TF32 slabs (:func:`pack_hr_tail_tc`): the head
-    keeps its three-pass product. Build it once per set of weights.
+    tensor-core route's hi/lo TF32 slabs (:func:`pack_hr_tail_tc`, padded as
+    there): the head keeps its three-pass product. Build it once per set of
+    weights.
     """
     w = dict(zip(WEIGHT_KEYS, weights))
     packs = [
         torch.cat([_bf16_slabs(w[key]) for key in keys]).contiguous()
         for keys in TC_PACK_KEYS[:-1]
     ]
-    return packs + [_tc_slabs(w["head_w"]).contiguous()]
+    return packs + [_tc_slabs(_padded_head(w["head_w"])).contiguous()]
 
 
 def hr_tail_reference_3xtf32(
@@ -350,11 +372,13 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, argtypes in (
         ("hr_tail_launch", [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
-        ("hr_tail_tc_launch", [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
+        ("hr_tail_tc_launch",
+         [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]),
         ("hr_tail_bf16_direct_launch",
          [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]),
         ("hr_tail_bf16_launch",
-         [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]),
+         [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+          ptr]),
     ):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
@@ -416,6 +440,8 @@ def _pack_shapes(route: str, want: dict) -> list[tuple[tuple[int, ...], torch.dt
     for keys in TC_PACK_KEYS:
         cout = int(want[keys[0]].shape[-1])
         slabs = sum(want[key].numel() // (TC_CK * cout) for key in keys)
+        if keys == ("head_w",):
+            cout = head_columns(cout)
         if route == "bf16" and keys != ("head_w",):
             out.append(((slabs, TC_CK // 8, cout, 8), torch.bfloat16))
         else:
@@ -458,7 +484,7 @@ def hr_tail_cuda(
     if on_tensor_cores:
         if not eligible:
             raise ValueError(
-                f"the {label} route takes Cm={TC_CM}, Ch={TC_CH}, Ca and Cb multiples "
+                f"the {label} route takes (Cm, Ch) in {TC_WIDTHS}, Ca and Cb multiples "
                 f"of 4 and Ca+Cb a multiple of {TC_CK}; got Ca={ca} Cb={cb} Cm={cm} Ch={ch}"
             )
         packer = "pack_hr_tail_tc" if route == "tensor" else "pack_hr_tail_bf16"
@@ -501,7 +527,7 @@ def hr_tail_cuda(
             offsets, nbytes = bf16_workspace(bf16_scratch(b, h, w, ca, cb, cm))
             workspace = torch.empty(nbytes, dtype=torch.uint8, device=sr.device)
             rc = lib.hr_tail_bf16_launch(
-                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
+                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
                 ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
                 *[workspace.data_ptr() + off for off in offsets], out.data_ptr(), stream,
             )
@@ -510,7 +536,7 @@ def hr_tail_cuda(
             buf_y = torch.empty_like(buf_p)
             if route == "tensor":
                 rc = lib.hr_tail_tc_launch(
-                    sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, wptrs,
+                    sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
                     ctypes.cast(_pointers(tc_pack), ctypes.c_void_p),
                     buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
                 )
@@ -520,6 +546,8 @@ def hr_tail_cuda(
                     sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
                     buf_p.data_ptr(), buf_y.data_ptr(), out.data_ptr(), stream,
                 )
+    if rc == NOT_INSTANTIATED:
+        raise ValueError(f"the {label} kernels were not built for Cm={cm}, Ch={ch}")
     _build.check(rc, f"hr_tail ({route} route)")
     launches += 1
     route_launches[route] += 1

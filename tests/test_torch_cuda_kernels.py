@@ -287,6 +287,55 @@ def test_hr_tail_kernel_rejects_what_it_does_not_take(cuda_device):
         ht.hr_tail(sr_w, dem_w, *wide[:k], store[1:], *wide[k + 1:], tc_pack=pack)
 
 
+# K1's tensor-core routes at the JAX package's other two HR layouts (hr_s2d 2
+# and 1 at base and fuse width 32): (Ca, Cb, Cm, Ch) and the tail's tile side.
+LAYOUT_WIDTHS = {2: (64, 32, 64, 4, 256), 1: (32, 32, 32, 1, 512)}
+
+
+# 8 tiles and 1 of the layout's tile, and an odd height with a ragged width
+# (neither a multiple of either route's block).
+@pytest.mark.parametrize("s2d", [2, 1])
+@pytest.mark.parametrize("shape", ["8_tiles", "1_tile", "odd"])
+def test_hr_tail_tensor_core_routes_at_the_layout_widths(cuda_device, s2d, shape):
+    ca, cb, cm, ch, tile = LAYOUT_WIDTHS[s2d]
+    b, h, w = {"8_tiles": (8, tile, tile), "1_tile": (1, tile, tile), "odd": (2, 37, 133)}[shape]
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=s2d)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=10 + s2d)
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    want16 = ht.hr_tail_reference_bf16(sr, dem, *weights)
+    packs = ht.pack_hr_tail_tc(weights), ht.pack_hr_tail_bf16(weights)
+    scale, scale16 = float(want.abs().max()), float(want16.abs().max())
+    rms_gap = float((want16 - want).square().mean().sqrt())
+    _reset_routes()
+    for _ in range(2):  # twice: a missing fence gives wrong sums only sometimes
+        got = ht.hr_tail(sr, dem, *weights, tc_pack=packs[0])
+        got16 = ht.hr_tail(sr, dem, *weights, tc_pack=packs[1], mode="bf16")
+        torch.cuda.synchronize()
+        assert got.shape == got16.shape == (b, h, w, ch)
+        # 3xTF32: the flagship route's bar, 1e-4 of the output's range
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+        # bf16: flipped roundings only (chip_smoke.py's BF16_GATE), and rare:
+        # their rms under a quarter of the distance between bf16 and f32
+        err16 = float((got16 - want16).abs().max())
+        rms16 = float((got16 - want16).square().mean().sqrt())
+        assert err16 <= 1e-2 * scale16 and rms16 < 0.25 * rms_gap, (err16, rms16, rms_gap)
+    assert ht.route_launches == _routes(tensor=2, bf16=2)
+
+
+def test_hr_tail_launchers_refuse_widths_they_were_not_built_for(cuda_device):
+    # The wrapper never hands them such widths (tc_eligible); the launchers
+    # themselves return an error rather than take another route.
+    import ctypes
+
+    lib = ht._lib()
+    buf = torch.zeros(64, device=cuda_device)
+    ptrs = (ctypes.c_void_p * 20)(*[buf.data_ptr()] * 20)
+    common = (buf.data_ptr(), buf.data_ptr(), 1, 8, 8, 16, 16, 16, 4, ptrs, ptrs)
+    rc_tc = lib.hr_tail_tc_launch(*common, *[buf.data_ptr()] * 3, 0)
+    rc_bf16 = lib.hr_tail_bf16_launch(*common, *[buf.data_ptr()] * 6, 0)
+    assert rc_tc == rc_bf16 == ht.NOT_INSTANTIATED
+
+
 def _relax_grid(seed, h, w, device):
     """Terrain-like costs in [1, 5] with ``inf`` walls and one NaN; seeds on the
     grid's corner and edge, and two equidistant from the cells between them."""

@@ -296,15 +296,17 @@ def test_tensor_core_pack_layout_and_round_trip():
         assert float(hi) + float(lo) == pytest.approx(float(value), rel=2.0**-21)
 
 
+# The instantiated (Cm, Ch) pairs are the JAX package's three HR layouts at
+# base and fuse width 32: hr_s2d 4 (the flagship), 2 and 1.
 @pytest.mark.parametrize(
     "ca,cb,cm,ch,ok",
     [
         (128, 32, 128, 16, True), (64, 16, 128, 16, True), (16, 8, 16, 4, False),
         (128, 32, 128, 4, False), (126, 34, 128, 16, False), (128, 24, 128, 16, False),
-        (128, 0, 128, 16, True),
+        (128, 0, 128, 16, True), (64, 32, 64, 4, True), (32, 32, 32, 1, True),
     ],
 )
-def test_tensor_core_route_takes_the_flagship_widths_only(ca, cb, cm, ch, ok):
+def test_tensor_core_route_takes_the_instantiated_widths_only(ca, cb, cm, ch, ok):
     assert ht.tc_eligible(ca, cb, cm, ch) is ok
 
 

@@ -44,23 +44,25 @@ COUNTERS = [
     const int st = g % NS;
     long long w0 = clock64();
     mbar_wait_ptx(full + 8 * st, (g / NS) & 1);
-    if (threadIdx.x == 0 && NS == NS_BODY) atomicAdd(&g_probe[0], (unsigned long long)(clock64() - w0));"""),
-    ("""    float acc[NACC];
+    if (threadIdx.x == 0 && NS == P::NS_BODY) atomicAdd(&g_probe[0], (unsigned long long)(clock64() - w0));"""),
+    ("""    float acc[MT][P::NACC];
     for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
-      g = mma_unit<NS_BODY>(acc, false, g, ring, full, empty, n1, n2, wg, lane);
-      // Hand the tile over once the epilogue has read the previous one.
-      mbar_wait_ptx(tempty + 8 * wg, (k & 1) ^ 1);""",
-     """    float acc[NACC];
+      g = mma_unit<P, NS>(acc, false, g, ring, full, empty, n1, n2, wg, lane);""",
+     """    float acc[MT][P::NACC];
     long long t_start = clock64();
     for (int u = blockIdx.x, k = 0; u < units; u += gridDim.x, ++k) {
-      g = mma_unit<NS_BODY>(acc, false, g, ring, full, empty, n1, n2, wg, lane);
-      // Hand the tile over once the epilogue has read the previous one.
-      long long e0 = clock64();
-      mbar_wait_ptx(tempty + 8 * wg, (k & 1) ^ 1);
-      if (threadIdx.x == 0) atomicAdd(&g_probe[1], (unsigned long long)(clock64() - e0));"""),
-    ("""      mbar_arrive(tfull + 8 * wg);
+      g = mma_unit<P, NS>(acc, false, g, ring, full, empty, n1, n2, wg, lane);"""),
+    ("""        // Hand the tile over once the epilogue has read the previous one.
+        mbar_wait_ptx(tempty + 8 * r, (k & 1) ^ 1);""",
+     """        // Hand the tile over once the epilogue has read the previous one.
+        long long e0 = clock64();
+        mbar_wait_ptx(tempty + 8 * r, (k & 1) ^ 1);
+        if (threadIdx.x == 0) atomicAdd(&g_probe[1], (unsigned long long)(clock64() - e0));"""),
+    ("""        mbar_arrive(tfull + 8 * r);
+      }
     }""",
-     """      mbar_arrive(tfull + 8 * wg);
+     """        mbar_arrive(tfull + 8 * r);
+      }
     }
     if (threadIdx.x == 0) {
       atomicAdd(&g_probe[2], (unsigned long long)(clock64() - t_start));
@@ -174,7 +176,7 @@ def main() -> int:
     counted = build("hr_tail_counted", source + READ_COUNTERS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     counted.hr_tail_bf16_launch.restype = ctypes.c_int
-    counted.hr_tail_bf16_launch.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 9
+    counted.hr_tail_bf16_launch.argtypes = [ptr, ptr] + [i32] * 7 + [ptr] * 9
 
     engine = EngineTorch(chip_smoke.FLAGSHIP, device="cuda")
     m, cfg = engine.model, engine.config

@@ -4,12 +4,14 @@
     git show <commit>:floodsr_tpu_torch/csrc/hr_tail.cu > _tree/parent_hr_tail.cu
     python3 tools/hr_tail_bf16_vs_parent.py _tree/parent_hr_tail.cu
 
-The earlier source's ``hr_tail_bf16_launch`` takes one of two argument
+The earlier source's ``hr_tail_bf16_launch`` takes one of three argument
 layouts, told apart by ``hr_tail_bf16_abi()``: a source without that symbol
 has the layout from before the route read its operands by TMA, ``(sr, dem, B,
 H, W, ca, cb, weights, packs, buf_p, buf_y, out, stream)`` with two f32 ``[B,
-H, W, 128]`` scratch buffers; one that returns 2 has the current layout. Any
-other source is refused before it is called. It is built with the same
+H, W, 128]`` scratch buffers; one that returns 2 the TMA route's, before the
+tensor-core launchers took ``cm, ch`` after ``cb`` (``hr_tail_tc_launch``
+too); one that returns 3 the current layout. Any other source is refused
+before it is called. It is built with the same
 ``nvcc`` flags into ``floodsr_tpu_torch/_build/parent/`` (git-ignored) and
 called through the same wrapper (``hr_tail_cuda(route="bf16")``: the same
 checks and one workspace allocation, of which the older layout takes its two
@@ -21,14 +23,16 @@ traced with ``torch.profiler`` for the device time of each launch. At one tile
 the host's time per call (``time.perf_counter`` around the wrapper's call,
 the launches enqueued, the card idle before each call) is taken with the two
 interleaved call by call, twice, each time in the other order. The other routes (3xTF32 tensor cores, direct, direct bf16) of both
-libraries are compared bit for bit at 8 tiles. One JSON line, with the card's
-name and power limit; the exit code is 1 when any comparison differs.
+libraries are compared bit for bit at 8 tiles, with a sha256 of each output's
+bytes. One JSON line, with the card's name and power limit; the exit code is
+1 when any comparison differs.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import statistics
 import subprocess
@@ -50,6 +54,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 BF16_ARGS = {
     1: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     2: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    3: [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+#: hr_tail_tc_launch's argument types: (cm, ch) after cb from layout 3 on
+TC_ARGS = {
+    1: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    2: [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    3: [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -77,7 +88,7 @@ def build_parent(source: Path) -> tuple[ctypes.CDLL, int]:
         )
     for name, argtypes in (
         ("hr_tail_bf16_launch", BF16_ARGS[abi]),
-        ("hr_tail_tc_launch", [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        ("hr_tail_tc_launch", TC_ARGS[abi]),
         ("hr_tail_launch", [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
         ("hr_tail_bf16_direct_launch", [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     ):
@@ -97,8 +108,23 @@ class EarlierLibrary:
         # the routes whose entry points kept their signature: the earlier ones
         return getattr(self._parent, name)
 
-    def hr_tail_bf16_launch(self, sr, dem, b, h, w, ca, cb, weights, packs,
+    def hr_tail_tc_launch(self, sr, dem, b, h, w, ca, cb, cm, ch, weights, packs,
+                          buf_p, buf_y, out, stream):
+        if self._abi >= 3:
+            return self._parent.hr_tail_tc_launch(
+                sr, dem, b, h, w, ca, cb, cm, ch, weights, packs, buf_p, buf_y, out, stream
+            )
+        return self._parent.hr_tail_tc_launch(
+            sr, dem, b, h, w, ca, cb, weights, packs, buf_p, buf_y, out, stream
+        )
+
+    def hr_tail_bf16_launch(self, sr, dem, b, h, w, ca, cb, cm, ch, weights, packs,
                             x_act, x_raw, act_a, act_b, y1, out, stream):
+        if self._abi >= 3:
+            return self._parent.hr_tail_bf16_launch(
+                sr, dem, b, h, w, ca, cb, cm, ch, weights, packs, x_act, x_raw, act_a, act_b,
+                y1, out, stream,
+            )
         if self._abi == 2:
             return self._parent.hr_tail_bf16_launch(
                 sr, dem, b, h, w, ca, cb, weights, packs, x_act, x_raw, act_a, act_b, y1, out,
@@ -109,6 +135,11 @@ class EarlierLibrary:
         return self._parent.hr_tail_bf16_launch(
             sr, dem, b, h, w, ca, cb, weights, packs, x_act, x_act + buf, out, stream
         )
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (on the host), the first 16 hex digits."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def host_us(torch, fns, calls: int) -> list:
@@ -155,8 +186,9 @@ def main(argv=None) -> int:
     hw, ca, cb = cfg.hr_tile // cfg.hr_s2d, cfg.base_filters * cfg.hr_s2d, cfg.fuse_filters
     sr8 = torch.from_numpy(np.abs(rng.normal(0, 1, (8, hw, hw, ca))).astype(np.float32)).cuda()
     dem8 = torch.from_numpy(np.abs(rng.normal(0, 1, (8, hw, hw, cb))).astype(np.float32)).cuda()
+    cm, ch = ca, cfg.hr_s2d ** 2
     lib = ht._lib
-    earlier_lib = EarlierLibrary(parent, abi, ht.TC_CM)
+    earlier_lib = EarlierLibrary(parent, abi, cm)
 
     def earlier(sr, dem):
         ht._lib = lambda: earlier_lib
@@ -175,8 +207,7 @@ def main(argv=None) -> int:
     def current(sr, dem):
         return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16")
 
-    macs = 8 * hw * hw * (9 * (ca + cb) * ht.TC_CM + 3 * 9 * ht.TC_CM ** 2 + (ca + cb) * ht.TC_CM
-                          + ht.TC_CM * ht.TC_CH)
+    macs = 8 * hw * hw * (9 * (ca + cb) * cm + 3 * 9 * cm ** 2 + (ca + cb) * cm + cm * ch)
     report = {"device": torch.cuda.get_device_name(0), "smi": smi, "parent_abi": abi}
     for tiles in (8, 1):
         sr, dem = sr8[:tiles], dem8[:tiles]
@@ -208,6 +239,7 @@ def main(argv=None) -> int:
         )[0]
         report[f"tiles_{tiles}"] = {
             "bit_equal": bool(torch.equal(a, c)),
+            "sha256": {"earlier": digest(a), "current": digest(c)},
             "max_abs_diff": float((a - c).abs().max()),
             "ms_earlier": [turns[0], turns[3]],
             "ms_current": [turns[1], turns[2]],
@@ -217,14 +249,16 @@ def main(argv=None) -> int:
             **host,
         }
     tc_pack = ht.pack_hr_tail_tc(weights)
-    others = {}
+    others, hashes = {}, {}
     for route in ("tensor", "direct", "bf16_direct"):
         pack_for = tc_pack if route == "tensor" else None
         a = earlier_route(sr8, dem8, route, pack_for)
         c = ht.hr_tail_cuda(sr8, dem8, *weights, tc_pack=pack_for, route=route)
         torch.cuda.synchronize()
         others[route] = bool(torch.equal(a, c))
+        hashes[route] = {"earlier": digest(a), "current": digest(c)}
     report["other_routes_bit_equal_8_tiles"] = others
+    report["other_routes_sha256_8_tiles"] = hashes
     engine.close()
     print(json.dumps({"hr_tail_bf16_vs_parent": report}))
     same = all(report[f"tiles_{t}"]["bit_equal"] for t in (8, 1)) and all(others.values())
