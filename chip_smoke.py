@@ -771,12 +771,15 @@ def phase_hr_tail_layouts(torch, seed: int) -> dict:
                 prof["hr_tail_tc_ms_by_launch" if route == "tensor" else "hr_tail_bf16_ms_by_launch"].items()
             }
             bound_ms, bound_by = base["bound_3xtf32" if route == "tensor" else "bound_bf16"]
+            # one tile's bound: its share of the 8 tiles' work
+            bound_1_ms = bound_ms / LAYOUT_TILES
             direct_ms = base["direct_route_ms" if route == "tensor" else "direct_bf16_route_ms"]
             library_ms = base["library_ms" if route == "tensor" else "library_bf16_ms"]
             route_bytes_ms = base["route_bytes_ms"][route]
             entries[route][f"{cm},{ch}"] = {
                 "hr_s2d": s2d, "widths": base["widths"], "ms": ms, "ms_1_tile": ms1,
                 "ms_by_launch": by_launch, "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms, "share_of_bound_1_tile": bound_1_ms / ms1,
                 "route_bytes_ms": route_bytes_ms,
                 "plain_ms": base["plain_bf16_ms" if route == "bf16" else "plain_ms"],
                 "library_ms": library_ms, "direct_route_ms": direct_ms, "launches": None, **report,
@@ -784,13 +787,16 @@ def phase_hr_tail_layouts(torch, seed: int) -> dict:
             log(
                 f"[hr_tail layouts] s2d={s2d} {base['widths']} {route} route {ms:.3f} ms at "
                 f"{LAYOUT_TILES} tiles ({bound_ms / ms:.1%} of the bound {bound_ms:.3f} ms, {bound_by}; "
-                f"its own traffic {route_bytes_ms:.3f} ms), one tile {ms1:.3f} ms, by launch "
+                f"its own traffic {route_bytes_ms:.3f} ms), one tile {ms1:.3f} ms "
+                f"({bound_1_ms / ms1:.1%} of {bound_1_ms:.3f} ms), by launch "
                 f"{json.dumps(by_launch)}; the direct route it replaces {direct_ms:.3f} ms "
                 f"({direct_ms / ms:.2f}x), cuDNN chain {library_ms:.3f} ms; {json.dumps(report)}"
             )
         del t, base
         torch.cuda.empty_cache()
-    usage = ptxas_usage("hr_tail", ("conv_tc_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel"))
+    usage = ptxas_usage(
+        "hr_tail", ("conv_tc_kernel", "conv_tc_rs_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel")
+    )
     for kernel, line in usage.items():
         log(f"[hr_tail layouts] ptxas {kernel}: {line}")
     return entries
@@ -893,7 +899,7 @@ def ptxas_usage(source: str, kernels: tuple) -> dict:
 
     out, current = {}, None
     for line in (_build.BUILD_DIR / f"{source}.log").read_text().splitlines():
-        m = re.search(r"(?:entry function|properties for|in the function) '?(\w+)", line)
+        m = re.search(r"(?:entry function|properties for|(?:in|for) the function) '?(\w+)", line)
         if m:
             current = label(m.group(1))
             note = re.search(r"\(C\d+\)[^:]*", line)
@@ -1054,7 +1060,7 @@ def scene_inputs(
 KERNEL_NAMES = {
     "tile_stats": ("tile_stats_one_read_kernel", "tile_stats_stream_kernel"),
     "hr_tail": (
-        "conv_tc_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel", "bf16_prepass_kernel",
+        "conv_tc_", "conv_bf16_kernel", "conv_bf16_head_kernel", "bf16_prepass_kernel",
         "affine_relu_conv3x3_kernel", "conv1x1_kernel",
     ),
     "relax_step": ("relax_step_kernel",),
@@ -1091,8 +1097,10 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
     spans = []
     by_name = {}
     n_by_name = {}
-    # (conv_bf16_ matches the bf16 route's three body launches and its head's)
-    conv_events = {"conv_tc_kernel": [], "conv_bf16_": []}
+    # (conv_tc_ matches the 3xTF32 route's kernel at every width, conv_tc_kernel
+    # and the small widths' conv_tc_rs_kernel; conv_bf16_ the bf16 route's
+    # three body launches and its head's)
+    conv_events = {"conv_tc_": [], "conv_bf16_": []}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -1170,8 +1178,8 @@ def device_profile(torch, run, grids_of: tuple = ()) -> dict:
         "device_event_sum_s": sum(by_name.values()) / 1e6,
         "kernel_device_ms": kernel_ms,
         "kernel_events": kernel_events,
-        "hr_tail_tc_calls": len(conv_events["conv_tc_kernel"]) // len(HR_TAIL_TC_LAUNCHES),
-        "hr_tail_tc_ms_by_launch": by_launch["conv_tc_kernel"],
+        "hr_tail_tc_calls": len(conv_events["conv_tc_"]) // len(HR_TAIL_TC_LAUNCHES),
+        "hr_tail_tc_ms_by_launch": by_launch["conv_tc_"],
         "hr_tail_bf16_calls": len(conv_events["conv_bf16_"]) // len(HR_TAIL_TC_LAUNCHES),
         "hr_tail_bf16_ms_by_launch": by_launch["conv_bf16_"],
         "kernel_share_of_busy": {k: v / (busy_us / 1e3) for k, v in kernel_ms.items()},

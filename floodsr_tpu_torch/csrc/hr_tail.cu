@@ -22,8 +22,8 @@
 //  - Tensor-core route (hr_tail_tc_launch; (Cm, Ch) = (128, 16), (64, 4) or
 //    (32, 1): the JAX package's three HR layouts, hr_s2d 4, 2 and 1 at base
 //    and fuse width 32; Ca and Cb multiples of 4, Ca + Cb a multiple of 16):
-//    four launches of tc::conv_tc_kernel<N = Cm, CH = Ch, MT>, one
-//    implicit-GEMM 3x3 convolution:
+//    four launches of tc::conv_tc_kernel<N = Cm, CH = Ch, MT> (or, at the
+//    small widths, tc::conv_tc_rs_kernel), one implicit-GEMM 3x3 convolution:
 //        y  = f1.conv1(relu(bn1 x))
 //        y1 = f1.conv2(relu(bn2 y)) + proj(x)   the projection as (Ca+Cb)/16
 //                                               more chunks of K on the raw x
@@ -58,7 +58,7 @@
 //        producer thread streams them through a 4-stage ring with
 //        cp.async.bulk + mbarrier, 128 N bytes a stage. 256 pixels a block
 //        keeps the L2 re-reads of the 1.18 MB of hi+lo weights of a 3x3 at
-//        Cm 128 at 0.6 GB a convolution; 512 at the small widths.
+//        Cm 128 at 0.6 GB a convolution.
 //      * The residual initializes the accumulators (its loads overlap the
 //        pipeline's fill; it may alias the output: each element is read and
 //        later written by the same thread); the epilogue adds the bias and
@@ -68,26 +68,57 @@
 //        and runs Cm/8 more k8 steps of m64nHNk8 against the head's weights,
 //        HN = Ch rounded up to the wgmma's 8 (the pack's columns beyond Ch
 //        are zeros; only Ch are stored).
-//      * The small widths (MT = 4; the consumers' and stagers' code differs
-//        from the flagship's, whose instantiation is left as it was measured,
-//        bit for bit): an m64n32k8 reads 2 KB of A and 1 KB of B from shared
-//        memory in its 16 clocks at peak, 192 bytes a clock against the SM's
-//        128 (m64n64k8: 128); so four tiles a warpgroup, so a weight slab
-//        feeds 512 pixels. The consumers wait in PTX and arrive predicated,
-//        the role branch is warp-uniform to the compiler and each tap's
-//        products are waited for before the next tap's (wait_group 0): with a
-//        C++ spin loop, or a group in flight across the loop, ptxas
-//        serializes the wgmma (C7518, C7515), which costs a latency per
-//        product. The stagers bring the raw patch in by cp.async, every copy
-//        of the chunk in flight at once (zeros outside the image), then
-//        activate and split it in place. What binds them, measured with clock
-//        counters in a copy of the kernel (tools/hr_tail_tc_probe.py): shared
-//        memory. The consumers wait for a staged patch 31% (Cm 64) and 40%
-//        (Cm 32) of their chunk loop, and the stagers' activate-and-split
-//        pass, whose shared-memory traffic competes with the products'
-//        operand reads, takes twice their copies' time. A from registers,
-//        each patch row loaded once for the three taps that read it, is the
-//        next step.
+//      * The small widths (Cm 64 and 32: hr_s2d 2 and 1) take
+//        tc::conv_tc_rs_kernel, the same convolution with the A operand from
+//        registers (wgmma m64nNk8 with A as four 32-bit registers a thread;
+//        the flagship's conv_tc_kernel is left as it was measured, bit for
+//        bit). In the design before it, with A from shared memory, an
+//        m64n32k8 read 2 KB of A and 1 KB of B in its 16 clocks at peak, 192
+//        bytes a clock against the SM's 128, and the consumers waited for a
+//        staged patch 31-40% of their loop. Now:
+//        - A consumer thread loads its fragment of one input row at one
+//          column tap with two 16-byte loads, one a pixel: channels 4t ..
+//          4t + 3 of the chunk (t = lane % 4), which the pack puts at k
+//          columns t and t + 4 of the chunk's two k8 steps (hr_tail.py:
+//          _tc_slabs, transposed). It splits them into hi and lo in registers
+//          and issues the products of every output row of its warpgroup that
+//          reads that row (ky = 0, 1, 2): one load and split for up to 18
+//          products. The sums run input-row-major (chunk, input row, column
+//          tap, output row, k8 step), so the small widths' outputs are not
+//          bit-equal to the design before (held to the plain version).
+//        - A group is one (row, column tap); two fragment buffers, one group
+//          in flight (wait_group 1), the offsets to the tap's slab added to
+//          the B descriptor in the PTX and the patch loads in PTX with
+//          immediate offsets, so no descriptor or address but the stage's
+//          lives in a register; the groups are unrolled at compile time
+//          (std::integer_sequence).
+//        - A chunk's nine weight slabs are resident in its stage (one bulk
+//          copy: 36 KB at Cm 32, 72 KB at 64; two stages), so a chunk has
+//          one barrier round; the head's weights go into the stage the chunk
+//          after the last would take.
+//        - The stagers copy the raw f32 patch by cp.async (zeros outside the
+//          image) and activate it in place in one f32 pass: the affine and
+//          ReLU in the consumers' registers, once per loaded fragment, was
+//          1-6% slower (the act_in_registers variant of
+//          tools/hr_tail_tc_variants.py and tools/hr_tail_tc_probe.py).
+//        - Rows a block: 8 at Cm 32 (MT = 4). At Cm 64, four tiles of 32
+//          accumulators a thread and two fragment buffers need more than the
+//          168 registers a thread of a 384-thread block has: 120 bytes
+//          spill and ptxas serializes the wgmma (C7512). setmaxnreg
+//          (consumers up, producers down) does not help: ptxas still
+//          compiles the kernel to 168, spills 0.3-0.6 KB and serializes at
+//          every width, 1.4x slower. So 6 rows (MT = 3), unless one wave of
+//          8-row blocks covers the grid (one 256x256 tile: 128 blocks, but
+//          172 of 6 rows), where MT = 4 is still faster. Those choices turned
+//          the other way: tools/hr_tail_tc_variants.py.
+//        What binds it (clock counters in a copy of the kernel,
+//        tools/hr_tail_tc_probe.py, H100): the consumers' own issue. A group
+//        waits for its loads and split before its products go out: 26-28% of
+//        the first consumer thread's time, and its wait for the patch 13%
+//        (Cm 64) and 23% (Cm 32): the stagers' activation pass is on the
+//        chunk's critical path. Shared memory asks about 85 bytes a
+//        clock at the tensor cores' pace. 61% of the operation bound at Cm 64,
+//        40% at Cm 32 (8 tiles).
 //      * A barrier that is not reached within seconds traps, so a protocol
 //        fault shows as a launch error and not as a hang.
 //  - bf16 route (hr_tail_bf16_launch; the same widths): the arithmetic of the
@@ -194,17 +225,19 @@
 // 90 registers each at every width (92 for the head at Cm 32), no spills;
 // dynamic shared memory 207,824 and 199,880 bytes at Cm 128, 199,936 and
 // 130,248 at 64, 204,608 and 124,616 at 32; bf16_prepass_kernel 24
-// registers. conv_tc_kernel 168 registers at Cm 128 (its head variant
-// spills 120 bytes, as it did before the widths were templated) and at 64
-// (the head variant 16 bytes), 96 and 108 at 32; dynamic shared memory
-// 168,552 / 184,936 (head) bytes at Cm 128, 203,368 / 207,464 at 64 and
-// 186,984 / 189,032 at 32. ptxas serializes the wgmma of the Cm 128
-// instantiation only (C7518).
+// registers. conv_tc_kernel (Cm 128) 168 registers (its head variant
+// spills 124 bytes), dynamic shared memory 168,552 / 184,936 (head) bytes;
+// ptxas serializes its wgmma (C7518), as it always did. conv_tc_rs_kernel
+// 147 / 149 (head) registers at <32,1,4>, 157 / 168 at <64,4,3>, no spills;
+// 168 at <64,4,4>, spilling 120 / 132 bytes, its wgmma serialized (C7512);
+// dynamic shared memory 158,264, 215,096 and 231,992 bytes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -469,17 +502,15 @@ constexpr int kSmemMax = 232448;   // a block's shared memory on the H100
 // outputs of the 1x1 head, whose wgmma is HN = CH rounded up to 8 wide (the
 // pack's columns beyond CH are zeros, and they are not stored), and MT 64-pixel
 // GEMM tiles (image rows) per consumer warpgroup: a block is TR = 2 MT image
-// rows x 64 columns. (128, 16, 2) is the flagship's; (64, 4, 4) and (32, 1, 4)
-// carry hr_s2d = 2 and 1, where the accumulators of a tile shrink to N/2
-// registers, so a warpgroup carries four tiles and a weight slab read from
-// the ring feeds 512 pixels instead of 256.
+// rows x 64 columns. This is the plan of conv_tc_kernel, the flagship's (128,
+// 16, 2); (64, 4, 3) and (32, 1, 4), hr_s2d = 2 and 1, take conv_tc_rs_kernel
+// (RsPlan below).
 template <int N_, int CH_, int MT_>
 struct Widths {
   static constexpr int N = N_;
   static constexpr int CH = CH_;
   static constexpr int MT = MT_;
   static constexpr int HN = (CH + 7) / 8 * 8;
-  static constexpr int NACC = N / 2;  // accumulator registers of one m64nN tile
   static constexpr int TR = 2 * MT;   // image rows per block
   // The staged patch: the block's pixels with a halo of 1.
   static constexpr int PH = TR + 2;
@@ -594,19 +625,6 @@ __device__ __forceinline__ void fence_acc(float (&acc)[MT][NACC]) {
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[mt][i])::"memory");
-}
-
-// One arrival on the barrier where pred is nonzero, predicated in the PTX
-// (no branch).
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, int pred) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.s32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-      "}\n" ::"r"(bar),
-      "r"(pred)
-      : "memory");
 }
 
 // A consumer's wait: in PTX (no branch around the wgmma) or the C++ loop.
@@ -744,46 +762,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
 }
 
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
 __device__ __forceinline__ void wgmma_tf32(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -904,6 +882,139 @@ __device__ __forceinline__ void store_head(float* px_out, const float (&hacc)[NH
   }
 }
 
+// The residual starts the sums (zeros without one); its loads overlap the
+// pipeline's fill. The m64nN fragment: thread (warp wq of the warpgroup, lane
+// l) holds rows 16 wq + l/4 and + 8, columns 8j + 2(l%4) and + 1, as
+// acc[mt][4j + 2*half + 0/1]; tile mt is image row y_first + mt.
+template <int N, int MT>
+__device__ __forceinline__ void start_sums(float (&acc)[MT][N / 2], const float* res, int b,
+                                           int H, int W, int x0, int y_first, int wq, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int gy = y_first + mt;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+      const bool live = res != nullptr && gy < H && gx < W;
+      const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        float2 r = make_float2(0.f, 0.f);
+        if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
+        acc[mt][4 * j + 2 * half] = r.x;
+        acc[mt][4 * j + 2 * half + 1] = r.y;
+      }
+    }
+  }
+}
+
+// The consumers' epilogue, after their last products. Without HEAD: bias (+
+// bias2), stored (the residual may alias out: each element was read by the
+// thread that writes it here). With HEAD: y = sums + biases, split into hi and
+// lo, over the idle pipeline buffers at smem in the A layout (plane[channel
+// quad][pixel][4], two y tiles a warpgroup), then N/8 more k8 steps of
+// m64nHNk8 against the head's weights at h_smem (landed on full_h).
+template <int N, int CH, int MT, bool HEAD, bool PTX>
+__device__ __forceinline__ void finish_tiles(float (&acc)[MT][N / 2],
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ bias2,
+                                             const float* __restrict__ head_bias, float* out,
+                                             unsigned char* smem, uint32_t h_smem, uint32_t full_h,
+                                             int b, int H, int W, int x0, int y_first, int wg,
+                                             int wq, int lane) {
+  constexpr int HN = (CH + 7) / 8 * 8;
+  constexpr int Y_HALF = (N / 4) * Y_PLANE;
+  if (!HEAD) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int gy = y_first + mt;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+        if (gy >= H || gx >= W) continue;
+        const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * (lane & 3));
+          float2 v;
+          v.x = acc[mt][4 * j + 2 * half] + bv.x;
+          v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
+          if (bias2 != nullptr) {
+            const float2 b2 = *reinterpret_cast<const float2*>(bias2 + 8 * j + 2 * (lane & 3));
+            v.x = v.x + b2.x;
+            v.y = v.y + b2.y;
+          }
+          *reinterpret_cast<float2*>(out + base + 8 * j) = v;
+        }
+      }
+    }
+    return;
+  }
+  // Both warpgroups have finished reading the pipeline's buffers; each takes
+  // its own part of them for its y tiles.
+  named_barrier(1, 256);
+  consumer_wait<PTX>(full_h, 0);
+  unsigned char* y_buf = smem + wg * 2 * Y_HALF;
+  const uint32_t y_smem = smem_u32(y_buf);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = 8 * j + 2 * (lane & 3);
+        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+        float2 v;
+        v.x = acc[mt][4 * j + 2 * half] + bv.x;
+        v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
+        if (bias2 != nullptr) {
+          const float2 b2 = *reinterpret_cast<const float2*>(bias2 + col);
+          v.x = v.x + b2.x;
+          v.y = v.y + b2.y;
+        }
+        float2 hi, lo;
+        hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+        hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+        unsigned char* dst = y_buf + (col >> 2) * Y_PLANE + px * 16 + (col & 3) * 4;
+        *reinterpret_cast<float2*>(dst) = hi;
+        *reinterpret_cast<float2*>(dst + Y_HALF) = lo;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(2 + wg, 128);
+    float hacc[HN / 2];
+#pragma unroll
+    for (int i = 0; i < HN / 2; ++i) hacc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < N / 8; ++ks) {
+      constexpr int HQ = HN * 16;  // bytes of one channel quad of head weights
+      const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HN * 4) + (ks & 1) * 2 * HQ;
+      const uint64_t dbh = smem_desc(hw, HQ, 128);
+      const uint64_t dbl = smem_desc(hw + CK * HN * 4, HQ, 128);
+      const uint64_t dah = smem_desc(y_smem + ks * 2 * Y_PLANE, Y_PLANE, 128);
+      const uint64_t dal = smem_desc(y_smem + Y_HALF + ks * 2 * Y_PLANE, Y_PLANE, 128);
+      wgmma_tf32(hacc, dal, dbh);
+      wgmma_tf32(hacc, dah, dbl);
+      wgmma_tf32(hacc, dah, dbh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < HN / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+    const int gy = y_first + mt;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
+      if (gy >= H || gx >= W) continue;
+      store_head<CH>(out + (((size_t)b * H + gy) * W + gx) * CH, hacc, half, lane, head_bias);
+    }
+    // The tile is read; the next one may overwrite it.
+    named_barrier(2 + wg, 128);
+  }
+}
+
 // out[b, y, x, :N] = bias (+ bias2) (+ res) + sum over taps and input channels
 // of f(x)[b, y+ky-1, x+kx-1, ci] * w[tap, ci, :] (+ x2[b, y, x, :] @ w2), with
 // f = relu(a*x + c), zero outside the image. x = (xa | xb) is the convolved
@@ -929,16 +1040,10 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
                const float* __restrict__ head_pack, const float* __restrict__ head_bias,
                float* out, int H, int W) {
   using Wd = Widths<N, CH, MT>;
-  constexpr int NACC = Wd::NACC, HN = Wd::HN, TR = Wd::TR, PH = Wd::PH;
+  constexpr int TR = Wd::TR, PH = Wd::PH;
   constexpr int PLANE = Wd::PLANE, QB = Wd::QB, A_HALF = Wd::A_HALF, A_STAGE = Wd::A_STAGE;
   constexpr int B_HALF = Wd::B_HALF, B_STAGE = Wd::B_STAGE, HEAD_W_BYTES = Wd::HEAD_W_BYTES;
-  constexpr int Y_HALF = Wd::Y_HALF;
-  // The consumers of the small widths wait in PTX (mbar_wait_ptx) and arrive
-  // predicated, with their accumulators pinned at each stage's edges: a C++
-  // spin loop or branch around the wgmma makes ptxas serialize them (C7518),
-  // which costs a wgmma's latency per product, most where N is small. The
-  // flagship's instantiation keeps the waits it was measured with.
-  constexpr bool PTX = N < 128;
+  static_assert(N == 128, "the small widths take conv_tc_rs_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* a_buf = smem;
   unsigned char* b_buf = smem + 2 * A_STAGE;
@@ -954,8 +1059,7 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  // with PTX, warp-uniform as far as the compiler can tell (the role branch below)
-  const int warp = PTX ? __shfl_sync(0xffffffffu, tid >> 5, 0) : tid >> 5;
+  const int warp = tid >> 5;
   const int x0 = blockIdx.x * TWX;
   const int y0 = blockIdx.y * TR;
   const int b = blockIdx.z;
@@ -983,30 +1087,13 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
     // The m64nN fragment: thread (warp w, lane l) of the warpgroup holds rows
     // 16w + l/4 and + 8, columns 8j + 2(l%4) and + 1, as acc[4j + 2*half + 0/1].
     const int wq = warp & 3;
-    float acc[MT][NACC];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int gy = y0 + wg * MT + mt;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
-        const bool live = res != nullptr && gy < H && gx < W;
-        const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
-#pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          // The residual starts the sums; its loads overlap the pipeline's fill.
-          float2 r = make_float2(0.f, 0.f);
-          if (live) r = *reinterpret_cast<const float2*>(res + base + 8 * j);
-          acc[mt][4 * j + 2 * half] = r.x;
-          acc[mt][4 * j + 2 * half + 1] = r.y;
-        }
-      }
-    }
+    float acc[MT][N / 2];
+    start_sums<N, MT>(acc, res, b, H, W, x0, y0 + wg * MT, wq, lane);
 
     uint32_t it = 0;
     for (int c = 0; c < nchunks; ++c) {
       const int sa = c & 1;
-      consumer_wait<PTX>(full_a + 8 * sa, (c >> 1) & 1);
+      mbar_wait(full_a + 8 * sa, (c >> 1) & 1);
       const uint32_t a_rows = a_smem + sa * A_STAGE + (wg * MT * PW) * 16;
       const int ntaps = c < n1 ? TAPS : 1;
       const int tap0 = c < n1 ? 0 : TAPS / 2;  // the 1x1 input sits at the centre tap
@@ -1014,7 +1101,7 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
       for (int t = 0; t < ntaps; ++t, ++it) {
         const int tap = tap0 + t;
         const uint32_t sb = it & (NB - 1);
-        consumer_wait<PTX>(full_b + 8 * sb, (it / NB) & 1);
+        mbar_wait(full_b + 8 * sb, (it / NB) & 1);
         const int ky = tap / 3;
         const int kx = tap - 3 * ky;
         const uint32_t a_tap = a_rows + (ky * PW + kx) * 16;
@@ -1035,16 +1122,9 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
           }
         }
         wgmma_commit();
-        if (PTX) {
-          wgmma_wait<0>();
-        } else {
-          wgmma_wait<1>();
-        }
+        wgmma_wait<1>();
         // The group before this one has finished reading its stages.
-        if (PTX) {
-          mbar_arrive_if(empty_b + 8 * ((it - 1) & (NB - 1)), it > 0 && lane == 0);
-          mbar_arrive_if(empty_a + 8 * ((c - 1) & 1), it > 0 && lane == 0 && t == 0);
-        } else if (it > 0 && lane == 0) {
+        if (it > 0 && lane == 0) {
           mbar_arrive(empty_b + 8 * ((it - 1) & (NB - 1)));
           if (t == 0) mbar_arrive(empty_a + 8 * ((c - 1) & 1));
         }
@@ -1052,103 +1132,9 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
     }
     wgmma_wait<0>();
     // Keep the compiler from reading the accumulators before the wait.
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[mt][i])::"memory");
-
-    // Epilogue: bias, store (the residual may alias out: each element was
-    // read above by the thread that writes it here).
-    if (!HEAD) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int gy = y0 + wg * MT + mt;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
-          if (gy >= H || gx >= W) continue;
-          const size_t base = (((size_t)b * H + gy) * W + gx) * N + 2 * (lane & 3);
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-            const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * (lane & 3));
-            float2 v;
-            v.x = acc[mt][4 * j + 2 * half] + bv.x;
-            v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
-            if (bias2 != nullptr) {
-              const float2 b2 = *reinterpret_cast<const float2*>(bias2 + 8 * j + 2 * (lane & 3));
-              v.x = v.x + b2.x;
-              v.y = v.y + b2.y;
-            }
-            *reinterpret_cast<float2*>(out + base + 8 * j) = v;
-          }
-        }
-      }
-    } else {
-      // Both warpgroups have finished reading the pipeline's buffers; each
-      // takes its own part of them for its y tiles.
-      named_barrier(1, 256);
-      consumer_wait<PTX>(full_h, 0);
-      unsigned char* y_buf = smem + wg * 2 * Y_HALF;
-      const uint32_t y_smem = a_smem + wg * 2 * Y_HALF;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // y = sums + bias, split, in the A layout: plane[channel quad][pixel][4].
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int px = wq * 16 + (lane >> 2) + 8 * half;
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-            const int col = 8 * j + 2 * (lane & 3);
-            const float2 bv = *reinterpret_cast<const float2*>(bias + col);
-            float2 v;
-            v.x = acc[mt][4 * j + 2 * half] + bv.x;
-            v.y = acc[mt][4 * j + 2 * half + 1] + bv.y;
-            if (bias2 != nullptr) {
-              const float2 b2 = *reinterpret_cast<const float2*>(bias2 + col);
-              v.x = v.x + b2.x;
-              v.y = v.y + b2.y;
-            }
-            float2 hi, lo;
-            hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
-            hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
-            unsigned char* dst = y_buf + (col >> 2) * Y_PLANE + px * 16 + (col & 3) * 4;
-            *reinterpret_cast<float2*>(dst) = hi;
-            *reinterpret_cast<float2*>(dst + Y_HALF) = lo;
-          }
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        named_barrier(2 + wg, 128);
-        float hacc[HN / 2];
-#pragma unroll
-        for (int i = 0; i < HN / 2; ++i) hacc[i] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < N / 8; ++ks) {
-          constexpr int HQ = HN * 16;  // bytes of one channel quad of head weights
-          const uint32_t hw = h_smem + (ks >> 1) * (2 * CK * HN * 4) + (ks & 1) * 2 * HQ;
-          const uint64_t dbh = smem_desc(hw, HQ, 128);
-          const uint64_t dbl = smem_desc(hw + CK * HN * 4, HQ, 128);
-          const uint64_t dah = smem_desc(y_smem + ks * 2 * Y_PLANE, Y_PLANE, 128);
-          const uint64_t dal = smem_desc(y_smem + Y_HALF + ks * 2 * Y_PLANE, Y_PLANE, 128);
-          wgmma_tf32(hacc, dal, dbh);
-          wgmma_tf32(hacc, dah, dbl);
-          wgmma_tf32(hacc, dah, dbh);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-#pragma unroll
-        for (int i = 0; i < HN / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
-        const int gy = y0 + wg * MT + mt;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int gx = x0 + wq * 16 + (lane >> 2) + 8 * half;
-          if (gy >= H || gx >= W) continue;
-          store_head<CH>(out + (((size_t)b * H + gy) * W + gx) * CH, hacc, half, lane, head_bias);
-        }
-        // The tile is read; the next one may overwrite it.
-        named_barrier(2 + wg, 128);
-      }
-    }
+    fence_acc(acc);
+    finish_tiles<N, CH, MT, HEAD, false>(acc, bias, bias2, head_bias, out, smem, h_smem, full_h, b,
+                                        H, W, x0, y0 + wg * MT, wg, wq, lane);
   } else if (warp == 8) {
     // ---- producer warp 0: stream the weight slabs through the ring ----
     if (lane == 0) {
@@ -1195,69 +1181,33 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
       }
       // plane q: a 16-byte row of 4 channels
       unsigned char* hi_plane = a_buf + sa * A_STAGE + q * PLANE;
-      if constexpr (PTX) {
-        // The raw patch first, by cp.async into the lo half (zeros outside
-        // the image), every copy of the chunk in flight at once: with two
-        // rows a step the small widths' chunks waited out a device-memory
-        // latency every two rows. Then each thread activates and splits, in
-        // place, the elements it copied.
-        for (int py = 0; py < PH; ++py) {
-          const int gy = y0 + py - 1;  // the halo
+      // Two patch rows a step, so six loads are in flight per thread.
+      for (int py0 = 0; py0 < PH; py0 += 2) {
+        float4 raw[2][NPX];
+        bool ok[2][NPX];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int gy = y0 + py0 + r - 1;  // the halo
 #pragma unroll
           for (int j = 0; j < NPX; ++j) {
             const int px = pc + kPixLanes * j;
             const int gx = x0 + px - 1;  // the halo
-            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-            if (px < PW) {
-              cp_async_16(smem_u32(hi_plane + A_HALF + (py * PW + px) * 16),
-                          ok ? src + (((size_t)b * H + gy) * W + gx) * cs + coff : src,
-                          ok ? 16 : 0);
+            ok[r][j] = px < PW && gy >= 0 && gy < H && gx >= 0 && gx < W;
+            raw[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (ok[r][j]) {
+              raw[r][j] = __ldg(reinterpret_cast<const float4*>(
+                  src + (((size_t)b * H + gy) * W + gx) * cs + coff));
             }
           }
         }
-        cp_async_wait_all();
-        for (int py = 0; py < PH; ++py) {
-          const int gy = y0 + py - 1;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
 #pragma unroll
           for (int j = 0; j < NPX; ++j) {
             const int px = pc + kPixLanes * j;
-            const int gx = x0 + px - 1;
             if (px >= PW) continue;
-            unsigned char* dst = hi_plane + (py * PW + px) * 16;
-            const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-            split_store(*reinterpret_cast<const float4*>(dst + A_HALF), ok, activate, fa, fc,
-                        dst, A_HALF);
-          }
-        }
-      } else {
-        // Two patch rows a step, so six loads are in flight per thread.
-        for (int py0 = 0; py0 < PH; py0 += 2) {
-          float4 raw[2][NPX];
-          bool ok[2][NPX];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int gy = y0 + py0 + r - 1;  // the halo
-#pragma unroll
-            for (int j = 0; j < NPX; ++j) {
-              const int px = pc + kPixLanes * j;
-              const int gx = x0 + px - 1;  // the halo
-              ok[r][j] = px < PW && gy >= 0 && gy < H && gx >= 0 && gx < W;
-              raw[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-              if (ok[r][j]) {
-                raw[r][j] = __ldg(reinterpret_cast<const float4*>(
-                    src + (((size_t)b * H + gy) * W + gx) * cs + coff));
-              }
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-#pragma unroll
-            for (int j = 0; j < NPX; ++j) {
-              const int px = pc + kPixLanes * j;
-              if (px >= PW) continue;
-              split_store(raw[r][j], ok[r][j], activate, fa, fc,
-                          hi_plane + ((py0 + r) * PW + px) * 16, A_HALF);
-            }
+            split_store(raw[r][j], ok[r][j], activate, fa, fc,
+                        hi_plane + ((py0 + r) * PW + px) * 16, A_HALF);
           }
         }
       }
@@ -1268,15 +1218,413 @@ conv_tc_kernel(const float* xa, int ca, const float* xb, int cb,
   }
 }
 
+// ---- the small widths (N < 128): the A operand from registers ----
+
+// One k8 step of m64nNk8 with A from registers: a[0..3] is the thread's
+// fragment (rows 16w + l/4 and + 8, k columns l%4 and + 4, in the order
+// (row, k) = (l/4, l%4), (l/4 + 8, l%4), (l/4, l%4 + 4), (l/4 + 8, l%4 + 4));
+// B at desc's start address plus OFF 16-byte units, added in the PTX so that
+// no descriptor but the stage's own lives in a register.
+template <int OFF>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "add.s64 db, %36, %37;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(OFF), "r"(1));
+}
+
+template <int OFF>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "add.s64 db, %20, %21;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, db, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(OFF), "r"(1));
+}
+
+// 16 bytes of shared memory at addr + OFF, in program order with the
+// barrier waits and products around it.
+template <int OFF>
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+%5];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr), "n"(OFF)
+               : "memory");
+  return v;
+}
+
+// One arrival on the barrier once every cp.async this thread has issued has
+// landed; the thread goes on at once (the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Keep fragment registers alive (and unmoved) up to this point: wgmma reads
+// them asynchronously, after the instruction the compiler sees.
+template <int K>
+__device__ __forceinline__ void pin(uint32_t (&r)[2][2][K]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[h][kk][i])::"memory");
+}
+
+__device__ __forceinline__ float4 act4(float4 v, float4 a, float4 c, bool ok) {
+  v.x = ok ? act(v.x, a.x, c.x) : 0.f;
+  v.y = ok ? act(v.y, a.y, c.y) : 0.f;
+  v.z = ok ? act(v.z, a.z, c.z) : 0.f;
+  v.w = ok ? act(v.w, a.w, c.w) : 0.f;
+  return v;
+}
+
+// The thread's A fragments of a 16-channel chunk's two k8 steps, split into
+// TF32 hi and lo: v0 and v1 are its two pixels' (rows l/4 and l/4 + 8)
+// channels 4(l%4) .. 4(l%4) + 3, which the pack (hr_tail.py: _tc_slabs) puts
+// at k columns l%4 and l%4 + 4 of step 0 (channels +0, +1) and of step 1 (+2,
+// +3). f[0] holds hi, f[1] lo, each [step][register].
+__device__ __forceinline__ void split_frag(float4 v0, float4 v1, uint32_t (&f)[2][2][4]) {
+  const float x[2][4] = {{v0.x, v1.x, v0.y, v1.y}, {v0.z, v1.z, v0.w, v1.w}};
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float hi = tf32_rna(x[kk][i]);
+      f[0][kk][i] = __float_as_uint(hi);
+      f[1][kk][i] = __float_as_uint(tf32_rna(x[kk][i] - hi));
+    }
+}
+
+// The plan of a small-width instantiation: a block is TR = 2 MT image rows x
+// 64 columns; two patch stages of raw f32 pixels, [pixel][16 channels] as in
+// device memory (64 bytes a pixel); two weight stages, each a chunk's nine
+// tap slabs [hi|lo][CK/4][N][4] (one slab for a projection chunk). The head's
+// y tiles go over the idle patch stages, its weights into the weight stage of
+// the chunk after the last.
+template <int N, int CH, int MT>
+struct RsPlan {
+  static constexpr int HN = (CH + 7) / 8 * 8;
+  static constexpr int TR = 2 * MT;
+  static constexpr int PH = TR + 2;
+  static constexpr int PIX = CK * 4;               // bytes of one pixel's chunk
+  static constexpr int A_STAGE = PH * PW * PIX;    // the raw patch
+  static constexpr int QB = N * 16;                // one channel quad of a slab: [cout][4]
+  static constexpr int B_HALF = (CK / 4) * QB;     // a slab's hi (or lo) weights
+  static constexpr int SLAB = 2 * B_HALF;
+  static constexpr int B_STAGE = TAPS * SLAB;      // a chunk's nine slabs
+  static constexpr int HEAD_W_BYTES = 2 * N * HN * 4;
+  static constexpr int Y_HALF = (N / 4) * Y_PLANE;
+  static constexpr int BYTES = 2 * A_STAGE + 2 * B_STAGE + 7 * 8;  // + 7 barriers
+  static_assert(BYTES <= kSmemMax, "a block's shared memory");
+  static_assert(4 * Y_HALF <= 2 * A_STAGE, "the head's y tiles over the patch stages");
+  static_assert(HEAD_W_BYTES <= B_STAGE, "the head's weights in a weight stage");
+};
+
+// The products of one fragment (input row J of the warpgroup's patch rows,
+// column tap DX) for the output row that reads it at KY, if the warpgroup
+// owns that row: both k8 steps, lo*Whi + hi*Wlo + hi*Whi each, against the
+// tap's slab in the stage at b_desc.
+template <int N, int MT, int J, int DX, int KY>
+__device__ __forceinline__ void rs_products(float (&acc)[MT][N / 2], const uint32_t (&f)[2][2][4],
+                                            uint64_t b_desc) {
+  constexpr int MTI = J - KY;
+  if constexpr (MTI >= 0 && MTI < MT) {
+    constexpr int QB = N * 16, B_HALF = (CK / 4) * QB;
+    constexpr int TAP = (3 * KY + DX) * 2 * B_HALF;  // bytes to the tap's slab
+    wgmma_tf32_rs<TAP / 16>(acc[MTI], f[1][0], b_desc);  // small terms first
+    wgmma_tf32_rs<(TAP + B_HALF) / 16>(acc[MTI], f[0][0], b_desc);
+    wgmma_tf32_rs<TAP / 16>(acc[MTI], f[0][0], b_desc);
+    wgmma_tf32_rs<(TAP + 2 * QB) / 16>(acc[MTI], f[1][1], b_desc);
+    wgmma_tf32_rs<(TAP + B_HALF + 2 * QB) / 16>(acc[MTI], f[0][1], b_desc);
+    wgmma_tf32_rs<(TAP + 2 * QB) / 16>(acc[MTI], f[0][1], b_desc);
+  }
+}
+
+// One group of a 3x3 chunk: the thread's fragment of patch row J (relative
+// to its warpgroup's first) at column tap DX, two 16-byte loads from the
+// activated patch stage at a_st, split, then its products for each output
+// row that reads it. The group before it is then done, and its fragment
+// buffer free.
+template <int N, int MT, int J, int DX>
+__device__ __forceinline__ void rs_group(float (&acc)[MT][N / 2], uint32_t (&frag)[2][2][2][4],
+                                         uint32_t a_st, uint64_t b_desc) {
+  constexpr int PIX = CK * 4, BUF = (3 * J + DX) & 1;
+  const float4 v0 = lds128<(J * PW + DX) * PIX>(a_st);
+  const float4 v1 = lds128<(J * PW + DX + 8) * PIX>(a_st);
+  split_frag(v0, v1, frag[BUF]);
+  wgmma_fence();
+  rs_products<N, MT, J, DX, 0>(acc, frag[BUF], b_desc);
+  rs_products<N, MT, J, DX, 1>(acc, frag[BUF], b_desc);
+  rs_products<N, MT, J, DX, 2>(acc, frag[BUF], b_desc);
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(frag[BUF ^ 1]);
+}
+
+// A 3x3 chunk: groups G = 3 J + DX in order, the warpgroup's MT + 2 patch
+// rows, each at its three column taps.
+template <int N, int MT, int... G>
+__device__ __forceinline__ void rs_chunk(std::integer_sequence<int, G...>,
+                                         float (&acc)[MT][N / 2], uint32_t (&frag)[2][2][2][4],
+                                         uint32_t a_st, uint64_t b_desc) {
+  (rs_group<N, MT, G / 3, G % 3>(acc, frag, a_st, b_desc), ...);
+}
+
+// A chunk of the projection's raw input: tile M's pixels (the patch's centre,
+// row M + 1, column tap 1), one slab at b_desc.
+template <int N, int MT, int M>
+__device__ __forceinline__ void rs_centre(float (&acc)[MT][N / 2], uint32_t (&frag)[2][2][2][4],
+                                          uint32_t a_st, uint64_t b_desc) {
+  constexpr int PIX = CK * 4, BUF = M & 1;
+  constexpr int QB = N * 16, B_HALF = (CK / 4) * QB;
+  split_frag(lds128<((M + 1) * PW + 1) * PIX>(a_st), lds128<((M + 1) * PW + 9) * PIX>(a_st),
+             frag[BUF]);
+  wgmma_fence();
+  wgmma_tf32_rs<0>(acc[M], frag[BUF][1][0], b_desc);
+  wgmma_tf32_rs<B_HALF / 16>(acc[M], frag[BUF][0][0], b_desc);
+  wgmma_tf32_rs<0>(acc[M], frag[BUF][0][0], b_desc);
+  wgmma_tf32_rs<2 * QB / 16>(acc[M], frag[BUF][1][1], b_desc);
+  wgmma_tf32_rs<(B_HALF + 2 * QB) / 16>(acc[M], frag[BUF][0][1], b_desc);
+  wgmma_tf32_rs<2 * QB / 16>(acc[M], frag[BUF][0][1], b_desc);
+  wgmma_commit();
+  wgmma_wait<1>();
+  pin(frag[BUF ^ 1]);
+}
+
+template <int N, int MT, int... M>
+__device__ __forceinline__ void rs_centre_chunk(std::integer_sequence<int, M...>,
+                                                float (&acc)[MT][N / 2],
+                                                uint32_t (&frag)[2][2][2][4], uint32_t a_st,
+                                                uint64_t b_desc) {
+  (rs_centre<N, MT, M>(acc, frag, a_st, b_desc), ...);
+}
+
+// conv_tc_kernel's function for N < 128, with the A operand from registers:
+// each consumer thread loads its fragment of an input row and column tap (two
+// 16-byte loads, one a pixel), splits it into hi and lo in registers and
+// feeds it to every output row of its warpgroup that reads that row (ky = 0,
+// 1, 2): one load and split serve up to three taps' products. The stagers
+// copy the raw patch and, for a 3x3 chunk, apply the affine and ReLU to it in
+// place; a chunk's nine weight slabs come in one bulk copy. Sums run input-row-major: for each chunk, each
+// input row, each column tap, each output row, the two k8 steps, lo*Whi +
+// hi*Wlo + hi*Whi. Arguments as conv_tc_kernel's; wpack's 3x3 and projection
+// slabs hold each chunk's channels in the order split_frag reads them.
+template <int N, int CH, int MT, bool HEAD>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_tc_rs_kernel(const float* xa, int ca, const float* xb, int cb,
+                  const float* __restrict__ aff_a, const float* __restrict__ aff_c,
+                  const float* x2a, int c2a, const float* x2b, int c2b,
+                  const float* __restrict__ wpack, const float* __restrict__ bias,
+                  const float* __restrict__ bias2, const float* res,
+                  const float* __restrict__ head_pack, const float* __restrict__ head_bias,
+                  float* out, int H, int W) {
+  using P = RsPlan<N, CH, MT>;
+  constexpr int TR = P::TR, PH = P::PH, PIX = P::PIX, QB = P::QB, A_STAGE = P::A_STAGE;
+  constexpr int SLAB = P::SLAB, B_STAGE = P::B_STAGE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t b_smem = smem_u32(smem) + 2 * A_STAGE;
+  const uint32_t full_a = b_smem + 2 * B_STAGE;  // [2] the stagers' copies have landed
+  const uint32_t full_b = full_a + 16;           // [2] the bulk copy's bytes
+  const uint32_t empty = full_a + 32;            // [2] one arrival per consumer warp
+  const uint32_t full_h = full_a + 48;           // the head's weights have landed
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // warp-uniform as far as the compiler can tell (the role branch below)
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int x0 = blockIdx.x * TWX;
+  const int y0 = blockIdx.y * TR;
+  const int b = blockIdx.z;
+  const int n1 = (ca + cb) / CK;              // chunks of the convolved input
+  const int nchunks = n1 + (c2a + c2b) / CK;  // then the chunks of the 1x1 input
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_a + 8 * s, kStagers);
+      mbar_init(full_b + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(full_h, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 8) {
+    // ---- consumers: warpgroup wg multiplies image rows MT*wg .. MT*wg + MT-1 ----
+    const int wg = warp >> 2;
+    const int wq = warp & 3;
+    float acc[MT][N / 2];
+    start_sums<N, MT>(acc, res, b, H, W, x0, y0 + wg * MT, wq, lane);
+    // The thread's first fragment pixel: patch row wg*MT, column 16 wq + l/4
+    // (image column gx0 + 1 .. at column tap dx = 1), channels 4(l%4) ..
+    const int t4 = lane & 3;
+    const uint32_t a_thread =
+        smem_u32(smem) + (wg * MT * PW + 16 * wq + (lane >> 2)) * PIX + 16 * t4;
+    uint32_t frag[2][2][2][4];  // [buffer][hi, lo][k8 step][register]
+    for (int c = 0; c < n1; ++c) {
+      const int s = c & 1;
+      mbar_wait_ptx(full_a + 8 * s, (c >> 1) & 1);
+      mbar_wait_ptx(full_b + 8 * s, (c >> 1) & 1);
+      rs_chunk<N, MT>(std::make_integer_sequence<int, 3 * (MT + 2)>{}, acc, frag,
+                      a_thread + s * A_STAGE, smem_desc(b_smem + s * B_STAGE, QB, 128));
+      wgmma_wait<0>();
+      pin(frag[0]);
+      pin(frag[1]);
+      mbar_arrive_lane0(empty + 8 * s, lane);
+    }
+    // The projection's chunks: the raw 1x1 input at each output pixel (the
+    // patch's centre), one slab a stage.
+    for (int c = n1; c < nchunks; ++c) {
+      const int s = c & 1;
+      mbar_wait_ptx(full_a + 8 * s, (c >> 1) & 1);
+      mbar_wait_ptx(full_b + 8 * s, (c >> 1) & 1);
+      rs_centre_chunk<N, MT>(std::make_integer_sequence<int, MT>{}, acc, frag,
+                             a_thread + s * A_STAGE, smem_desc(b_smem + s * B_STAGE, QB, 128));
+      wgmma_wait<0>();
+      pin(frag[0]);
+      pin(frag[1]);
+      mbar_arrive_lane0(empty + 8 * s, lane);
+    }
+    fence_acc(acc);
+    finish_tiles<N, CH, MT, HEAD, true>(acc, bias, bias2, head_bias, out, smem,
+                                        b_smem + (nchunks & 1) * B_STAGE, full_h, b, H, W, x0,
+                                        y0 + wg * MT, wg, wq, lane);
+  } else if (warp == 8) {
+    // ---- producer warp 0: a chunk's slabs per stage, then the head's ----
+    if (lane == 0) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(wpack);
+      for (int c = 0; c < nchunks; ++c) {
+        const int s = c & 1;
+        const uint32_t bytes = c < n1 ? B_STAGE : SLAB;
+        const size_t off = c < n1 ? (size_t)c * B_STAGE
+                                  : (size_t)n1 * B_STAGE + (size_t)(c - n1) * SLAB;
+        mbar_wait(empty + 8 * s, ((c >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_b + 8 * s, bytes);
+        bulk_load(b_smem + s * B_STAGE, src + off, bytes, full_b + 8 * s);
+      }
+      if (HEAD) {
+        // into the stage the chunk after the last would take, once the
+        // consumers have released it
+        const int s = nchunks & 1;
+        mbar_wait(empty + 8 * s, ((nchunks >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_h, P::HEAD_W_BYTES);
+        bulk_load(b_smem + s * B_STAGE, head_pack, P::HEAD_W_BYTES, full_h);
+      }
+    }
+  } else {
+    // ---- producer warps 1-3: copy the raw patch, zeros outside the image ----
+    const int t = tid - 288;
+    const int q = t & 3;    // channel quad of the chunk
+    const int pc = t >> 2;  // pixel lane along the patch row
+    for (int c = 0; c < nchunks; ++c) {
+      const int s = c & 1;
+      mbar_wait(empty + 8 * s, ((c >> 1) & 1) ^ 1);
+      const bool second = c >= n1;  // a chunk of the raw 1x1 input
+      const int gc = (second ? c - n1 : c) * CK + q * 4;
+      const float* pa = second ? x2a : xa;
+      const float* pb = second ? x2b : xb;
+      const int na = second ? c2a : ca;
+      const int nb = second ? c2b : cb;
+      const float* src;
+      int cs, coff;
+      if (gc < na) {
+        src = pa; cs = na; coff = gc;
+      } else {
+        src = pb; cs = nb; coff = gc - na;
+      }
+      unsigned char* quad = smem + s * A_STAGE + q * 16;
+      for (int py = 0; py < PH; ++py) {
+        const int gy = y0 + py - 1;  // the halo
+#pragma unroll
+        for (int j = 0; j < NPX; ++j) {
+          const int px = pc + kPixLanes * j;
+          const int gx = x0 + px - 1;  // the halo
+          const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          if (px < PW) {
+            cp_async_16(smem_u32(quad + (py * PW + px) * PIX),
+                        ok ? src + (((size_t)b * H + gy) * W + gx) * cs + coff : src,
+                        ok ? 16 : 0);
+          }
+        }
+      }
+      if (second) {
+        cp_async_arrive_noinc(full_a + 8 * s);
+        continue;
+      }
+      cp_async_wait_all();
+      const float4 fa = *reinterpret_cast<const float4*>(aff_a + gc);
+      const float4 fc = *reinterpret_cast<const float4*>(aff_c + gc);
+      for (int py = 0; py < PH; ++py) {
+        const int gy = y0 + py - 1;
+#pragma unroll
+        for (int j = 0; j < NPX; ++j) {
+          const int px = pc + kPixLanes * j;
+          const int gx = x0 + px - 1;
+          if (px >= PW) continue;
+          float4* p = reinterpret_cast<float4*>(quad + (py * PW + px) * PIX);
+          *p = act4(*p, fa, fc, gy >= 0 && gy < H && gx >= 0 && gx < W);
+        }
+      }
+      mbar_arrive(full_a + 8 * s);
+    }
+  }
+}
+
+// The small widths take A from registers (conv_tc_rs_kernel); their packs
+// hold each chunk's channels transposed (hr_tail.py: _tc_slabs).
+template <int N>
+constexpr bool kAFromRegisters = N < 128;
+
 template <int N, int CH, int MT, bool HEAD>
 cudaError_t launch(const float* xa, int ca, const float* xb, int cb, const float* a,
                    const float* c, const float* x2a, int c2a, const float* x2b, int c2b,
                    const float* wpack, const float* bias, const float* bias2,
                    const float* res, const float* head_pack, const float* head_bias,
                    float* out, int B, int H, int W, cudaStream_t stream) {
-  auto kern = conv_tc_kernel<N, CH, MT, HEAD>;
-  constexpr int smem = Smem<Widths<N, CH, MT>, HEAD>::BYTES;
-  constexpr int TR = Widths<N, CH, MT>::TR;
+  constexpr bool RS = kAFromRegisters<N>;
+  auto kern = [] {
+    if constexpr (RS) return conv_tc_rs_kernel<N, CH, MT, HEAD>;
+    else return conv_tc_kernel<N, CH, MT, HEAD>;
+  }();
+  constexpr int smem = [] {
+    if constexpr (RS) return RsPlan<N, CH, MT>::BYTES;
+    else return Smem<Widths<N, CH, MT>, HEAD>::BYTES;
+  }();
+  constexpr int TR = 2 * MT;  // image rows per block
   // The opt-in to more than 48 KB of dynamic shared memory holds for the life
   // of the process: set it at this kernel's first launch on each device.
   constexpr int kMaxDevices = 64;
@@ -1917,12 +2265,29 @@ extern "C" int hr_tail_bf16_direct_launch(const float* sr, const float* dem, int
                       true, stream_ptr);
 }
 
+// The current device's SM count, queried once per device: the bf16 body
+// kernel's persistent grid, and the 3xTF32 route's rows a block at Cm 64.
+static cudaError_t sm_count(int* sms) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && known[dev] > 0) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) known[dev] = *sms;
+  return err;
+}
+
 // Returned by the tensor-core launchers for a (cm, ch) they were not
 // instantiated for: they never take another route instead.
 constexpr int kNotInstantiated = 200000;
 
 // Tensor-core route: the same chain, every convolution through
-// tc::conv_tc_kernel<N, CH, MT>.
+// tc::conv_tc_kernel<N, CH, MT>, or tc::conv_tc_rs_kernel<N, CH, MT> where
+// N < 128 (tc::kAFromRegisters).
 template <int N, int CH, int MT>
 static int tc_chain(const float* sr, const float* dem, int B, int H, int W, int ca, int cb,
                     const float* const* wt, const float* const* pk, float* buf_p, float* buf_y,
@@ -1965,10 +2330,32 @@ extern "C" int hr_tail_tc_launch(const float* sr, const float* dem, int B, int H
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (cm == 128 && ch == 16)
     return tc_chain<128, 16, 2>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
-  if (cm == 64 && ch == 4)
-    return tc_chain<64, 4, 4>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  if (cm == 64 && ch == 4) {
+    // Six rows a block (MT 3) keep a warpgroup's accumulators and fragments in
+    // registers; a grid that one wave of eight-row blocks covers takes those
+    // (MT 4, a few spilled registers): one 256x256 tile is 128 such blocks,
+    // but 172 of six rows, and their second wave leaves the card 70% idle.
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    if ((long long)B * ((H + 7) / 8) * ((W + tc::TWX - 1) / tc::TWX) <= sms)
+      return tc_chain<64, 4, 4>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+    return tc_chain<64, 4, 3>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  }
   if (cm == 32 && ch == 1)
     return tc_chain<32, 1, 4>(sr, dem, B, H, W, ca, cb, wt, pk, buf_p, buf_y, out, stream);
+  return kNotInstantiated;
+}
+
+// Whether the tensor-core route at (cm, ch) takes its A operand from
+// registers (conv_tc_rs_kernel), so that its pack holds each chunk's channels
+// transposed: 1 or 0, or kNotInstantiated. The wrapper holds its pack's
+// order (hr_tail.py: a_from_registers) against this when it loads the
+// library.
+extern "C" int hr_tail_tc_a_from_registers(int cm, int ch) {
+  if (cm == 128 && ch == 16) return tc::kAFromRegisters<128>;
+  if (cm == 64 && ch == 4) return tc::kAFromRegisters<64>;
+  if (cm == 32 && ch == 1) return tc::kAFromRegisters<32>;
   return kNotInstantiated;
 }
 
@@ -2023,22 +2410,6 @@ static int tensor_map(CUtensorMap* map, const void* ptr, int C, int B, int H, in
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
-}
-
-// The current device's SM count, queried once per device: the body kernel's
-// persistent grid.
-static cudaError_t sm_count(int* sms) {
-  static int known[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && known[dev] > 0) {
-    *sms = known[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64) known[dev] = *sms;
-  return err;
 }
 
 // The bf16 route's chain: the pre-pass, then the three body launches, each

@@ -214,15 +214,32 @@ def _padded_head(w: torch.Tensor) -> torch.Tensor:
     return F.pad(w, (0, head_columns(int(w.shape[-1])) - int(w.shape[-1])))
 
 
-def _tc_slabs(m: torch.Tensor) -> torch.Tensor:
-    """``[taps..., Cin, Cout]`` → ``[Cin/16 * taps, 2, 4, Cout, 4]`` hi/lo slabs."""
+def a_from_registers(cm: int) -> bool:
+    """Whether the tensor-core route at this Cm takes its A operand from
+    registers (the small widths' kernel, ``conv_tc_rs_kernel``), so that its
+    3×3 and projection slabs hold each chunk's channels transposed
+    (:func:`_tc_slabs`)."""
+    return cm < 128
+
+
+def _tc_slabs(m: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """``[taps..., Cin, Cout]`` → ``[Cin/16 * taps, 2, 4, Cout, 4]`` hi/lo slabs.
+
+    A slab's ``[quad q][cout][i]`` holds channel ``4q + i`` of its 16-channel
+    chunk, or with ``transposed`` channel ``4i + q``: the k column that
+    ``wgmma`` reads there is then the one the A-from-registers kernel puts
+    that channel at (a thread's one 16-byte load of a pixel, channels ``4t ..
+    4t + 3``, is its fragment at k columns ``t`` and ``t + 4`` of the chunk's
+    two k8 steps).
+    """
     cin, cout = int(m.shape[-2]), int(m.shape[-1])
     if cin % TC_CK:
         raise ValueError(f"{cin} input channels are not a multiple of {TC_CK}")
     halves = torch.stack(split_tf32(m.reshape(-1, cin, cout)))  # [2, taps, cin, cout]
     taps = halves.shape[1]
     slabs = halves.reshape(2, taps, cin // TC_CK, TC_CK // 4, 4, cout)
-    return slabs.permute(2, 1, 0, 3, 5, 4).reshape(-1, 2, TC_CK // 4, cout, 4)
+    order = (2, 1, 0, 4, 5, 3) if transposed else (2, 1, 0, 3, 5, 4)
+    return slabs.permute(*order).reshape(-1, 2, TC_CK // 4, cout, 4)
 
 
 def pack_hr_tail_tc(weights) -> list[torch.Tensor]:
@@ -233,15 +250,21 @@ def pack_hr_tail_tc(weights) -> list[torch.Tensor]:
     (chunk-major), the hi halves then the lo halves (:func:`split_tf32`), each
     as ``[channel quad][Cout][4 channels]``, which is the no-swizzle K-major
     layout ``wgmma`` reads its B operand in. An entry of two matrices holds the
-    first one's slabs, then the second's. The head's Cout is padded to
-    :func:`head_columns` with zeros (``wgmma`` is at least 8 wide); the
+    first one's slabs, then the second's. Where :func:`a_from_registers` (Cm
+    64 and 32), the four convolution entries hold each chunk's channels
+    transposed (:func:`_tc_slabs`); the head never. The head's Cout is padded
+    to :func:`head_columns` with zeros (``wgmma`` is at least 8 wide); the
     kernels store only its first Ch columns. Build it once per set of weights,
     not per call.
     """
     w = dict(zip(WEIGHT_KEYS, weights))
+    transposed = a_from_registers(int(w["f1_b1"].shape[0]))
     w["head_w"] = _padded_head(w["head_w"])
     return [
-        torch.cat([_tc_slabs(w[key]) for key in keys]).contiguous() for keys in TC_PACK_KEYS
+        torch.cat([
+            _tc_slabs(w[key], transposed and keys != ("head_w",)) for key in keys
+        ]).contiguous()
+        for keys in TC_PACK_KEYS
     ]
 
 
@@ -384,6 +407,18 @@ def _lib():
         if fn.restype is not ctypes.c_int or not fn.argtypes:
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
+    query = lib.hr_tail_tc_a_from_registers
+    if query.restype is not ctypes.c_int or not query.argtypes:
+        query.restype, query.argtypes = ctypes.c_int, [i32, i32]
+        # The kernels' own choice against the pack's channel order: a pack in
+        # the other order would give a wrong convolution, silently.
+        for cm, ch in TC_WIDTHS:
+            built = query(cm, ch)
+            if built != int(a_from_registers(cm)):
+                raise RuntimeError(
+                    f"hr_tail library: A from registers at Cm={cm} is {built} in the "
+                    f"kernels but {a_from_registers(cm)} in pack_hr_tail_tc's order"
+                )
     return lib
 
 

@@ -336,6 +336,33 @@ def test_hr_tail_launchers_refuse_widths_they_were_not_built_for(cuda_device):
     assert rc_tc == rc_bf16 == ht.NOT_INSTANTIATED
 
 
+# The small widths' kernel (A from registers, conv_tc_rs_kernel): a batch of 3
+# at a height and width that are not multiples of its blocks (6x64 at Cm 64,
+# a grid over one wave; 8x64 at Cm 32), twice on the same inputs (bit-equal:
+# the sums' order is fixed); and features of 1e4 at the bar of the flagship's
+# test above, 3e-5 of the output's range.
+@pytest.mark.parametrize("s2d", [2, 1])
+@pytest.mark.parametrize("case", ["ragged", "large_features"])
+def test_hr_tail_small_widths_take_a_from_registers(cuda_device, s2d, case):
+    ca, cb, cm, ch, _ = LAYOUT_WIDTHS[s2d]
+    b, h, w, size, bar = {
+        "ragged": (3, 100, 200, 1.0, 1e-4), "large_features": (1, 40, 64, 1e4, 3e-5)
+    }[case]
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=20 + s2d, scale=size)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=30 + s2d)
+    want = ht.hr_tail_reference(sr, dem, *weights)
+    pack = ht.pack_hr_tail_tc(weights)
+    _reset_routes()
+    got = ht.hr_tail(sr, dem, *weights, tc_pack=pack)
+    again = ht.hr_tail(sr, dem, *weights, tc_pack=pack)
+    torch.cuda.synchronize()
+    assert ht.route_launches == _routes(tensor=2)
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert scale > 0.1 * size and err <= bar * scale, (err, scale)
+
+
 def _relax_grid(seed, h, w, device):
     """Terrain-like costs in [1, 5] with ``inf`` walls and one NaN; seeds on the
     grid's corner and edge, and two equidistant from the cells between them."""

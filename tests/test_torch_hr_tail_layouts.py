@@ -127,9 +127,12 @@ def test_tensor_core_pack_layout_round_trip_and_padded_head(s2d):
     # the head's columns beyond Ch are zeros in both halves
     assert not pack[4][:, :, :, ch:, :].any()
 
-    def entry(t, first, taps, ci, tap, co):
-        slab = t[first + (ci // 16) * taps + tap]  # [hi|lo][quad][cout][4]
-        return slab[:, (ci % 16) // 4, co, ci % 4]
+    def entry(t, first, taps, ci, tap, co, transposed=True):
+        # [hi|lo][quad][cout][4]; the small widths' convolution slabs hold
+        # chunk channel 4i + q at [q][.][i] (A from registers), the head 4q + i
+        slab = t[first + (ci // 16) * taps + tap]
+        q, i = (ci % 4, (ci % 16) // 4) if transposed else ((ci % 16) // 4, ci % 4)
+        return slab[:, q, co, i]
 
     rng = np.random.default_rng(s2d)
     for _ in range(40):
@@ -139,7 +142,8 @@ def test_tensor_core_pack_layout_round_trip_and_padded_head(s2d):
             (w["f1_pw"][ci, co], entry(pack[1], (cm // 16) * 9, 1, ci, 0, co)),
             (w["f2_w2"].reshape(9, cm, cm)[tap, ci % cm, co],
              entry(pack[3], 0, 9, ci % cm, tap, co)),
-            (w["head_w"][ci % cm, co % ch], entry(pack[4], 0, 1, ci % cm, 0, co % ch)),
+            (w["head_w"][ci % cm, co % ch],
+             entry(pack[4], 0, 1, ci % cm, 0, co % ch, transposed=False)),
         ]
         for value, (hi, lo) in cases:
             assert hi == ht.split_tf32(value)[0]
