@@ -28,13 +28,16 @@ Phases (any failure raises and exits non-zero; none is caught):
    (``hr_s2d`` 2: 64 + 32 -> 64 -> 4 on 256² tiles; 1: 32 + 32 -> 32 -> 1 on
    512²), weights from ``init_resunet(--seed)``, 8 tiles: the direct f32 and
    bf16 routes, the plain versions and both cuDNN chains held and timed
-   first (what these widths ran before), then both tensor-core routes
-   against their plain versions at 8 tiles and 1, timed and traced by
-   launch, with the bounds and each route's own device-memory traffic; the
-   new instantiations' ``-Xptxas -v`` lines; then ``tohr`` on a 1024² scene
-   (9 tiles) with an artifact of each layout (``init_resunet`` +
-   ``save_artifact``) under ``float32`` and ``bfloat16``: K1 on the
-   tensor-core route at every call and never direct; f32 against
+   first (what these widths ran before), then the 3xTF32 route and the
+   bf16 band route (one launch, every intermediate on chip) against their
+   plain versions at 8 tiles and 1, timed and traced by launch, with the
+   bounds, each route's own device-memory traffic and the peak memory of
+   one 8-tile call; the band route's one-tile grid from the trace (at least
+   128 blocks, ``band_plan``'s); the kernels' ``-Xptxas -v`` lines; then
+   ``tohr`` on a 1024² scene (9 tiles) with an artifact of each layout
+   (``init_resunet`` + ``save_artifact``) under ``float32`` and ``bfloat16``:
+   K1 on the 3xTF32 route and the band route at every call and never direct;
+   f32 against
    ``device="cpu"`` at 1e-3 m RMSE, bf16 against the same scene on the card
    with K1 through its plain version (a quarter of the policy's own distance
    to f32), its distance to ``device="cpu"`` logged;
@@ -158,8 +161,9 @@ Phases (any failure raises and exits non-zero; none is caught):
 20. a ``{"kernels": [...]}`` line (K1 with ``launches_train_eval`` and
     ``launches_train_mesh_eval``; each kernel with ``launches_mesh``; K1, its
     bf16 route and K2 with ``launches_bench`` and ``launches_examples``; K1
-    and its bf16 route with ``layouts``, an entry per instantiated (Cm, Ch)
-    beside the flagship's: ms, bound, plain, library and direct-route ms and
+    and the bf16 band route (``hr_tail_bf16_band``, its top-level numbers
+    ``hr_s2d`` 1's) with ``layouts``, an entry per (Cm, Ch) beside the
+    flagship's: ms, bound, plain, library and direct-route ms, peak MiB and
     the launches of that layout's scene), the card's name and power limit,
     then the ``{"ok": true, ...}`` line last.
 
@@ -647,15 +651,23 @@ def tail_work(sr, dem, weights, cm: int, ch: int) -> dict:
     intermediates included: the 3xTF32 route's four launches read x twice and
     write and read three f32 [.., Cm] tensors (y, y1, z; y1 twice); the bf16
     route's pre-pass reads x and writes bf16(x) twice, its launches store and
-    read bf16 operands and y1 in f32 (csrc/hr_tail.cu's header)."""
+    read bf16 operands and y1 in f32 (csrc/hr_tail.cu's header); the bf16
+    band route reads x once a unit, halos included (``band_plan``: 64 columns
+    and the band's rows and 8 for 56 columns and its rows), and writes the
+    output: no intermediate."""
+    from floodsr_tpu_torch.ops.kernels import hr_tail as ht
+
     b, h, w, ca = (int(v) for v in sr.shape)
     cin, pix = ca + int(dem.shape[3]), b * h * w
+    rows, bands, strips = ht.band_plan(b, h, w)
+    band_x = b * strips * bands * (rows + 2 * ht.BAND_HALO) * (ht.BAND_COLS + 2 * ht.BAND_HALO)
     return {
         "macs": pix * (9 * cin * cm + 3 * 9 * cm * cm + cin * cm + cm * ch),
         "bytes": pix * (cin + ch) * 4 + sum(t.numel() for t in weights) * 4,
         "route_bytes": {
             "tensor": pix * 4 * (2 * cin + 7 * cm + ch),
             "bf16": pix * (12 * cin + 20 * cm + 4 * ch),
+            "bf16_band": band_x * cin * 4 + pix * ch * 4,
         },
     }
 
@@ -717,15 +729,31 @@ def hr_tail_layout_baseline(torch, t: dict) -> dict:
     return out
 
 
+def peak_mib(torch, fn) -> float:
+    """Device memory one call of ``fn`` allocates at its peak above what was
+    allocated before it (its output and any workspace), MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak / 2**20
+
+
 def phase_hr_tail_layouts(torch, seed: int) -> dict:
-    """K1's tensor-core routes at ``hr_s2d`` 2 and 1 (3xTF32 and bf16) against
-    their plain versions at 8 tiles and at 1, then timed beside the direct
-    routes they replace, the plain versions and the cuDNN chains. Returns an
-    entry per layout for each of the two routes."""
+    """K1's tensor-core routes at ``hr_s2d`` 2 and 1 (3xTF32, and bf16 on the
+    band route: one launch, every intermediate on chip) against their plain
+    versions at 8 tiles and at 1, then timed beside the direct routes they
+    replace, the plain versions and the cuDNN chains, with the peak device
+    memory of one 8-tile call; the band route's one-tile grid read from the
+    trace. Returns an entry per layout for each of the two routes."""
     from floodsr_tpu_torch.ops.kernels import hr_tail as ht
     from floodsr_tpu_torch.ops.kernels import reset_launch_counts
 
-    entries = {"tensor": {}, "bf16": {}}
+    entries = {"tensor": {}, "bf16_band": {}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for s2d in HR_TAIL_LAYOUTS:
         t = layout_tail(torch, seed, s2d)
         base = hr_tail_layout_baseline(torch, t)
@@ -733,11 +761,12 @@ def phase_hr_tail_layouts(torch, seed: int) -> dict:
         ca, cb, cm, ch = t["dims"]
         if not ht.tc_eligible(ca, cb, cm, ch):
             raise AssertionError(f"hr_tail s2d={s2d}: {base['widths']} is not a tensor-core width")
-        packs = {"tensor": ht.pack_hr_tail_tc(weights), "bf16": ht.pack_hr_tail_bf16(weights)}
-        modes = {"tensor": "f32", "bf16": "bf16"}
+        packs = {"tensor": ht.pack_hr_tail_tc(weights), "bf16_band": ht.pack_hr_tail_bf16(weights)}
+        modes = {"tensor": "f32", "bf16_band": "bf16"}
         for route, pack in packs.items():
-            want = base["want16" if route == "bf16" else "want"]
-            scale = base["scale16" if route == "bf16" else "scale"]
+            bf16 = route == "bf16_band"
+            want = base["want16" if bf16 else "want"]
+            scale = base["scale16" if bf16 else "scale"]
 
             def call(tiles, pack=pack, route=route):
                 return ht.hr_tail(sr[:tiles], dem[:tiles], *weights, tc_pack=pack, mode=modes[route])
@@ -766,22 +795,40 @@ def phase_hr_tail_layouts(torch, seed: int) -> dict:
             ms = time_ms(torch, lambda: call(LAYOUT_TILES), reps=10)
             ms1 = time_ms(torch, lambda: call(1), reps=10)
             prof = device_profile(torch, lambda: [call(LAYOUT_TILES) for _ in range(3)])
-            by_launch = {
-                k: v / 3 for k, v in
-                prof["hr_tail_tc_ms_by_launch" if route == "tensor" else "hr_tail_bf16_ms_by_launch"].items()
-            }
-            bound_ms, bound_by = base["bound_3xtf32" if route == "tensor" else "bound_bf16"]
+            if bf16:
+                # one launch a call, the band kernel's alone: no pre-pass, no
+                # launch that stores an intermediate
+                if prof["kernel_events"]["hr_tail"] != 3:
+                    raise AssertionError(
+                        f"hr_tail s2d={s2d} bf16_band route: {prof['kernel_events']['hr_tail']} "
+                        f"launches in 3 calls; top {json.dumps(prof['top_device_ms'])}"
+                    )
+                by_launch = {"band": prof["kernel_device_ms"]["hr_tail"] / 3}
+                # one tile must still fill the card: the grid from the trace
+                grids = device_profile(torch, lambda: call(1), grids_of=("bf16_band_kernel",))["grids"]
+                blocks1 = min(int(np.prod(g)) for g in grids["bf16_band_kernel"])
+                rows, bands, strips = ht.band_plan(1, *sr.shape[1:3], sms)
+                if blocks1 < 128 or blocks1 != bands * strips:
+                    raise AssertionError(
+                        f"hr_tail s2d={s2d} bf16_band route: a one-tile launch of {grids} blocks, "
+                        f"band_plan {bands} x {strips}"
+                    )
+                report["grids_1_tile"] = grids["bf16_band_kernel"]
+            else:
+                by_launch = {k: v / 3 for k, v in prof["hr_tail_tc_ms_by_launch"].items()}
+            bound_ms, bound_by = base["bound_bf16" if bf16 else "bound_3xtf32"]
             # one tile's bound: its share of the 8 tiles' work
             bound_1_ms = bound_ms / LAYOUT_TILES
-            direct_ms = base["direct_route_ms" if route == "tensor" else "direct_bf16_route_ms"]
-            library_ms = base["library_ms" if route == "tensor" else "library_bf16_ms"]
+            direct_ms = base["direct_bf16_route_ms" if bf16 else "direct_route_ms"]
+            library_ms = base["library_bf16_ms" if bf16 else "library_ms"]
             route_bytes_ms = base["route_bytes_ms"][route]
+            peak = peak_mib(torch, lambda: call(LAYOUT_TILES))
             entries[route][f"{cm},{ch}"] = {
-                "hr_s2d": s2d, "widths": base["widths"], "ms": ms, "ms_1_tile": ms1,
+                "hr_s2d": s2d, "widths": base["widths"], "route": route, "ms": ms, "ms_1_tile": ms1,
                 "ms_by_launch": by_launch, "bound_ms": bound_ms, "bound_by": bound_by,
                 "share_of_bound": bound_ms / ms, "share_of_bound_1_tile": bound_1_ms / ms1,
-                "route_bytes_ms": route_bytes_ms,
-                "plain_ms": base["plain_bf16_ms" if route == "bf16" else "plain_ms"],
+                "route_bytes_ms": route_bytes_ms, "peak_mib_8_tiles": peak,
+                "plain_ms": base["plain_bf16_ms" if bf16 else "plain_ms"],
                 "library_ms": library_ms, "direct_route_ms": direct_ms, "launches": None, **report,
             }
             log(
@@ -789,13 +836,15 @@ def phase_hr_tail_layouts(torch, seed: int) -> dict:
                 f"{LAYOUT_TILES} tiles ({bound_ms / ms:.1%} of the bound {bound_ms:.3f} ms, {bound_by}; "
                 f"its own traffic {route_bytes_ms:.3f} ms), one tile {ms1:.3f} ms "
                 f"({bound_1_ms / ms1:.1%} of {bound_1_ms:.3f} ms), by launch "
-                f"{json.dumps(by_launch)}; the direct route it replaces {direct_ms:.3f} ms "
+                f"{json.dumps(by_launch)}; peak {peak:.1f} MiB a call of {LAYOUT_TILES} tiles; "
+                f"the direct route it replaces {direct_ms:.3f} ms "
                 f"({direct_ms / ms:.2f}x), cuDNN chain {library_ms:.3f} ms; {json.dumps(report)}"
             )
         del t, base
         torch.cuda.empty_cache()
     usage = ptxas_usage(
-        "hr_tail", ("conv_tc_kernel", "conv_tc_rs_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel")
+        "hr_tail", ("conv_tc_kernel", "conv_tc_rs_kernel", "conv_bf16_kernel", "conv_bf16_head_kernel",
+                    "bf16_band_kernel")
     )
     for kernel, line in usage.items():
         log(f"[hr_tail layouts] ptxas {kernel}: {line}")
@@ -836,7 +885,7 @@ def phase_layout_scenes(torch, seed: int) -> dict:
     from floodsr_tpu_torch.ops.kernels import hr_tail as ht
     from floodsr_tpu_torch.tohr import tohr
 
-    want_route = {"float32": "tensor", "bfloat16": "bf16"}
+    want_route = {"float32": "tensor", "bfloat16": "bf16_band"}
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-layouts-") as tmp:
         tmp = Path(tmp)
@@ -1061,7 +1110,7 @@ KERNEL_NAMES = {
     "tile_stats": ("tile_stats_one_read_kernel", "tile_stats_stream_kernel"),
     "hr_tail": (
         "conv_tc_", "conv_bf16_kernel", "conv_bf16_head_kernel", "bf16_prepass_kernel",
-        "affine_relu_conv3x3_kernel", "conv1x1_kernel",
+        "bf16_band_kernel", "affine_relu_conv3x3_kernel", "conv1x1_kernel",
     ),
     "relax_step": ("relax_step_kernel",),
 }
@@ -3267,11 +3316,25 @@ def main(argv=None) -> int:
     layouts = phase_hr_tail_layouts(torch, args.seed)
     layout_launches = phase_layout_scenes(torch, args.seed)
     # K1 at the two other HR layouts: each route's entry per (Cm, Ch), with
-    # its launches in that layout's tohr scene
-    for k, route, dtype in ((k1, "tensor", "float32"), (k1_bf16, "bf16", "bfloat16")):
-        for entry in layouts[route].values():
+    # its launches in that layout's tohr scene; the bf16 band route is a
+    # kernel of its own (hr_s2d 1's numbers at the top, the larger gap)
+    for entries, dtype in ((layouts["tensor"], "float32"), (layouts["bf16_band"], "bfloat16")):
+        for entry in entries.values():
             entry["launches"] = layout_launches[entry["hr_s2d"]][dtype]
-        k["layouts"] = layouts[route]
+    k1["layouts"] = layouts["tensor"]
+    band = layouts["bf16_band"]["32,1"]
+    k1_band = {
+        "name": "hr_tail_bf16_band",
+        "route": "cuda",
+        "source": "floodsr_tpu_torch/csrc/hr_tail.cu",
+        "replaces": "floodsr_tpu/ops/pallas/hr_tail.py:594",
+        "launches": sum(e["launches"] for e in layouts["bf16_band"].values()),
+        **{k: band[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "kernel": "tc::band::bf16_band_kernel",
+        "layouts": layouts["bf16_band"],
+    }
+    if not k1_band["launches"] > 0:
+        raise AssertionError(f"the bf16 band route was not launched by the layout scenes: {k1_band}")
     kernels = [k2, k1]
     phase_tohr_cases(torch)
     scene = phase_scene(torch, args.seed, SCENE_SIZE, args.profile)
@@ -3325,11 +3388,14 @@ def main(argv=None) -> int:
         raise AssertionError(f"hr_tail's bf16 route was not launched by the bfloat16 scene: {k1_bf16}")
     kernels.insert(2, k1_bf16)
     # a flagship scene of bench_torch.py (its bfloat16 scene for the bf16 route);
-    # the three user examples together (K1 in the tutorial only)
+    # the three user examples together (K1 in the tutorial only); neither
+    # runs an hr_s2d 2 or 1 artifact, so the band route's launches are the
+    # layout scenes' alone
     for k in kernels:
         if k["name"] != "relax_step":
             k["launches_bench"] = bench["launches"][k["name"]]
             k["launches_examples"] = examples[k["name"]]
+    kernels.insert(3, k1_band)
     # K1 in the training path's eval step (the train step itself runs unfused)
     k1["launches_train_eval"], k1["train_eval_ms"] = train["k1_launches_eval"], train["k1_eval_ms"]
     # and once per dp row in the sharded eval step of each mesh

@@ -121,9 +121,9 @@
 //        40% at Cm 32 (8 tiles).
 //      * A barrier that is not reached within seconds traps, so a protocol
 //        fault shows as a launch error and not as a hang.
-//  - bf16 route (hr_tail_bf16_launch; the same widths): the arithmetic of the
-//    TPU kernel's mode="bf16" (:385-447, _conv3x3_im2col :183-185, _dot
-//    :122-126). Inputs, intermediates, affines, biases and residual adds stay
+//  - bf16 route (hr_tail_bf16_launch; the flagship's widths, (Cm, Ch) =
+//    (128, 16)): the arithmetic of the TPU kernel's mode="bf16" (:385-447,
+//    _conv3x3_im2col :183-185, _dot :122-126). Inputs, intermediates, affines, biases and residual adds stay
 //    f32; at the four 3x3 convolutions and at the projection the activated
 //    operand is rounded to bf16 (round to nearest even) and multiplied with
 //    the bf16-rounded weight in ONE pass with f32 accumulation; the 1x1 head
@@ -154,9 +154,9 @@
 //        (residual first, chunk outer, tap inner), so the result is the same
 //        bit for bit.
 //      * A unit is 2 MT image rows x 64 columns: MT 64-pixel GEMM tiles per
-//        MMA warpgroup, 64 accumulators a thread at every width (MT = 1 at Cm
-//        128, 2 at 64, 4 at 32); a 128x128 tile is 128 units at Cm 128, so
-//        the scene's call of one tile fills the card. At Cm 128, units of 4
+//        MMA warpgroup, 64 accumulators a thread (MT = 1 at Cm 128, the one
+//        width instantiated); a 128x128 tile is 128 units, so the scene's
+//        call of one tile fills the card. At Cm 128, units of 4
 //        rows (256 pixels a weight read) were slower: with 4 MMA warpgroups
 //        ptxas budgets 96 registers and spills, with 2 warpgroups of two
 //        tiles each it serializes the wgmma (C7515). A patch octet whose size
@@ -172,6 +172,41 @@
 //        block: the residual starts its sums and its y tile goes over the
 //        idle ring.
 //      * A barrier that is not reached within seconds traps.
+//  - bf16 band route (hr_tail_bf16_band_launch; (Cm, Ch, Ca+Cb) = (64, 4, 96)
+//    and (32, 1, 64), hr_s2d 2 and 1): the same arithmetic in ONE launch of
+//    tc::band::bf16_band_kernel, every intermediate on chip, as the TPU
+//    kernel's row bands with 4-row halos keep theirs in VMEM (:385-447):
+//      * A unit (a block) is a strip of 56 output columns down a band of
+//        rows (band_rows: the fewest waves of blocks times a block's steps;
+//        130 blocks at one tile of either layout). Every operand a tile row
+//        reads has 64 pixels, the strip and 4 each side, so one wgmma
+//        m64nNk16 (N = Cm) covers a row and each 3x3 leaves its edge pixels
+//        unused: after four, the 56 are exact (a column halo recomputed, no
+//        row halo but the band's first 8 rows).
+//      * Rows go down the band two a step. Step t brings x rows 2t-4, 2t-3
+//        (f32, loaded into registers during the step before, one read of x
+//        a unit), stores bf16(relu(bn1 x)) into the x ring, then warpgroup wg
+//        computes row 2t-5+wg of y (f1.conv1), 2t-6+wg of y1 (f1.conv2 and
+//        the projection from bf16(x) of the step before's rows), 2t-7+wg of
+//        z (f2.conv1) and 2t-8+wg of the output (f2.conv2 + y1, the head).
+//        Each reads the rows its predecessor wrote in this step or the one
+//        before: rings of four rows ([octet][row][66 pixels][8], the
+//        K-major core matrices, a tap a constant offset) hold them; y1's
+//        f32 value stays in the registers of the warpgroup that adds it one
+//        step later. Stage k runs from step k on.
+//      * The epilogues apply the next convolution's affine and ReLU, round
+//        to bf16 and zero every pixel outside the image at that tensor's own
+//        rows and columns (SAME padding after the activation: TMA's zero
+//        fill did it on the bf16 route). The head splits y2 into TF32 hi and
+//        lo over two rows of the x ring that f1.conv1 has read for the last
+//        time, 16 channels at a time, and runs the bf16 route's 3xTF32 head.
+//      * Weights: at Cm 32 all five matrices (94 KB) stay in shared memory
+//        for the block's life; at Cm 64 (336 KB) a producer warp streams
+//        them chunk by chunk (nine slabs, 18 KB) through two ring stages.
+//      * The sums run in the bf16 route's order (residual first, chunk
+//        outer, tap inner, the projection after), so the output is the same
+//        bit for bit (tools/hr_tail_bf16_vs_parent.py). Only the output
+//        reaches device memory: no pre-pass and no scratch.
 //  - Direct route (hr_tail_launch; any channel counts): the first version of
 //    this port, f32 FMA on the CUDA cores, six launches (proj, four 3x3, the
 //    head). affine_relu_conv3x3 computes 8 rows x 32 columns x 32 output
@@ -213,19 +248,28 @@
 // At the other two layouts (8 tiles; Ca+Cb -> Cm -> Ch, tile side): hr_s2d 2
 // (96 -> 64 -> 4, 256) is 11.29 GMAC a tile, hr_s2d 1 (64 -> 32 -> 1, 512)
 // 12.63: the 3xTF32 bounds are 1.095 and 1.224 ms, the bf16 bounds 0.183
-// and 0.204 ms, all operations. But each route moves more than its bound's
-// bytes as designed, its intermediates included: the 3xTF32 route 1.35 and
-// 2.96 GB at 8 tiles (0.403 and 0.884 ms at 3.35 TB/s), the bf16 route 1.28
-// and 2.96 GB (0.383 and 0.884 ms, a third of it its pre-pass): those bytes,
-// not the operations, bound the bf16 route at both layouts, and at hr_s2d 1
-// they are 72% of the 3xTF32 route's operation bound. A fused row-band
-// design that keeps the intermediates on chip (the TPU kernel's own shape)
-// is the way under them.
+// and 0.204 ms, all operations. The 3xTF32 route moves 1.35 and 2.96 GB at 8
+// tiles as designed, its intermediates included (0.403 and 0.884 ms at 3.35
+// TB/s). The bf16 band route reads x once a unit, its halo included (64
+// columns and 8 rows more for 56 and the band's), and writes the output:
+// 0.29 and 0.71 GB at most (0.085 and 0.213 ms; a neighbour's halo may come
+// from L2), about its operation bound, where the bf16 route it replaces moved
+// 1.28 and 2.96 GB. What holds it
+// above its bound (tools/hr_tail_band_variants.py, H100): the head, x's
+// loads and, at Cm 64, the weight stream (336 KB a step of 128 pixels,
+// against two 18 KB stages) take a fifth to two fifths of the time; x's
+// prefetch at Cm 64 shares 168 registers a thread with two residual sets and
+// spills. Clock counters (tools/hr_tail_band_probe.py): the products take
+// 43-44% of a block's time; x's act store, f1.conv2's epilogue with the raw
+// store and x's load issue, the head and the other epilogues the rest, none
+// of it overlapped with products. A second accumulator chain a warpgroup,
+// and A from registers without reuse across rows, were both slower.
 // -Xptxas -v (nvcc 12.9, sm_90a): conv_bf16_kernel and conv_bf16_head_kernel
-// 90 registers each at every width (92 for the head at Cm 32), no spills;
-// dynamic shared memory 207,824 and 199,880 bytes at Cm 128, 199,936 and
-// 130,248 at 64, 204,608 and 124,616 at 32; bf16_prepass_kernel 24
-// registers. conv_tc_kernel (Cm 128) 168 registers (its head variant
+// 90 registers each, no spills; dynamic shared memory 207,824 and 199,880
+// bytes; bf16_prepass_kernel 24 registers. bf16_band_kernel 168 registers
+// (a 288-thread block's budget) at <32,1,64>, no spills, and at <64,4,96>,
+// spilling 400 bytes; dynamic shared memory 201,776 and 222,128 bytes; no
+// wgmma serialized. conv_tc_kernel (Cm 128) 168 registers (its head variant
 // spills 124 bytes), dynamic shared memory 168,552 / 184,936 (head) bytes;
 // ptxas serializes its wgmma (C7518), as it always did. conv_tc_rs_kernel
 // 147 / 149 (head) registers at <32,1,4>, 157 / 168 at <64,4,3>, no spills;
@@ -1652,9 +1696,9 @@ namespace bf {
 
 // The plan of one instantiation (N, CH as in tc::Widths). A unit is TR = 2 MT
 // image rows x 64 columns: MT 64-pixel GEMM tiles (image rows) per MMA
-// warpgroup, MT * N/2 accumulators a thread (64 at every instantiated width:
-// (128, 16, 1), (64, 4, 2), (32, 1, 4)). A 128x128 tile of the flagship is 128
-// units, so the scene's call of one tile fills the card.
+// warpgroup, MT * N/2 accumulators a thread (64 at the instantiated (128,
+// 16, 1)). A 128x128 tile of the flagship is 128 units, so the scene's call
+// of one tile fills the card.
 template <int N_, int CH_, int MT_>
 struct Plan {
   static constexpr int N = N_;
@@ -1681,7 +1725,7 @@ struct Plan {
   static constexpr int HEAD_W_BYTES = 2 * N * HN * 4;
   // ---- the body kernel: ring stages; the handed-over f32 tiles, a pixel's
   // row padded ----
-  static constexpr int NS_BODY = N == 128 ? 3 : 4;
+  static constexpr int NS_BODY = 3;
   static constexpr int T_ROW = (N + 8) * 4;
   static constexpr int T_TILE = TWX * T_ROW;      // one image row's tile
   static constexpr int BODY_SMEM =
@@ -2203,6 +2247,501 @@ cudaError_t launch_head(const CUtensorMap& patch_map, int n1, const void* wpack,
 
 }  // namespace bf
 
+// ---------------------------------------------------------------------------
+// bf16 band route: the whole bf16 chain of one column strip and row band in
+// one launch, every intermediate on chip (hr_s2d 2 and 1).
+// ---------------------------------------------------------------------------
+
+namespace band {
+
+constexpr int kThreads = 288;          // compute warpgroups 0 and 1, producer warp 8
+constexpr int TP = 64;                 // pixels of a tile row: one wgmma's 64 rows
+constexpr int kHalo = 4;               // four 3x3 convolutions: 4 pixels each side
+constexpr int TWO = TP - 2 * kHalo;    // output columns of a strip
+constexpr int RS = 4;                  // rows of a ring: 2 new a step, 2 the 3x3 carries
+constexpr int ROWB = (TP + 2) * 16;    // one octet of a ring row: 66 pixels (a pad each side)
+constexpr int RPLANE = RS * ROWB + 16; // one octet's plane; 16 bytes off the 128-byte grid
+constexpr int XROWB = TP * 16;         // one octet of a raw x row: the tile's own pixels
+constexpr int RAW_PLANE = 2 * XROWB + 16;
+constexpr int HQ_PLANE = TP * 16;      // one channel quad of a 64-pixel f32 y tile (the head)
+
+// The plan of one instantiation: N = Cm, CH = Ch, CIN = Ca + Cb. Every ring
+// holds RS rows of TP + 2 pixels of one operand in bf16, as [octet][row]
+// [pixel][8]: the no-swizzle K-major core matrices (LBO = RPLANE, SBO = 128),
+// so a tap is a constant offset, as in the other routes.
+template <int N_, int CH_, int CIN_>
+struct Plan {
+  static constexpr int N = N_, CH = CH_, CIN = CIN_;
+  static constexpr int HN = (CH + 7) / 8 * 8;
+  static constexpr int NACC = N / 2;
+  static constexpr int QB = N * 16;
+  static constexpr int W_SLAB = 2 * QB;            // one (chunk, tap) slab [octet][N][8]
+  static constexpr int W_CHUNK = TAPS * W_SLAB;    // a chunk's nine slabs
+  static constexpr int C1 = CIN / CK;              // f1.conv1's chunks, and the projection's
+  static constexpr int CM = N / CK;                // every other convolution's
+  static constexpr int W1 = C1 * W_CHUNK;                // f1.conv1
+  static constexpr int W2 = CM * W_CHUNK + C1 * W_SLAB;  // f1.conv2, then the projection
+  static constexpr int W3 = CM * W_CHUNK;                // f2.conv1, and f2.conv2
+  // Cm 32: all five matrices (94 KB) stay in shared memory for the block's
+  // life; Cm 64 (336 KB): they stream through NS stages of one chunk each.
+  static constexpr bool RESIDENT = W1 + W2 + 2 * W3 <= 100 * 1024;
+  static constexpr int NS = 2;
+  static constexpr int STAGE = W_CHUNK;
+  static constexpr int W_BYTES = RESIDENT ? W1 + W2 + 2 * W3 : NS * STAGE;
+  static constexpr int HEAD_W_BYTES = 2 * N * HN * 4;
+  static constexpr int X_BYTES = CIN / 8 * RPLANE;     // act(x), f1.conv1's operand
+  static constexpr int A_BYTES = N / 8 * RPLANE;       // y, act(y1), z: one each
+  static constexpr int RAW_BYTES = CIN / 8 * RAW_PLANE;  // bf16(x) of two rows
+  // per-channel vectors: f1.bn1 (a, c), then 11 of Cm (VEC_* below)
+  static constexpr int NVEC = 2 * CIN + 11 * N;
+  static constexpr int NPREF = 2 * TP * (CIN / 4) / 256;  // float4 of x a thread, a step
+  static constexpr int OFF_Y = X_BYTES;
+  static constexpr int OFF_Y1 = OFF_Y + A_BYTES;
+  static constexpr int OFF_Z = OFF_Y1 + A_BYTES;
+  static constexpr int OFF_RAW = OFF_Z + A_BYTES;
+  static constexpr int OFF_W = (OFF_RAW + RAW_BYTES + 127) / 128 * 128;
+  static constexpr int OFF_H = OFF_W + W_BYTES;
+  static constexpr int OFF_VEC = OFF_H + HEAD_W_BYTES;
+  static constexpr int OFF_BAR = OFF_VEC + NVEC * 4;
+  static constexpr int SMEM = 128 + OFF_BAR + (2 * NS + 2) * 8;
+  static_assert(CIN % CK == 0 && N % CK == 0, "16-channel chunks");
+  static_assert(STAGE >= C1 * W_SLAB, "a stage holds the projection's slabs");
+  static_assert(NPREF * 256 == 2 * TP * (CIN / 4), "x's float4 split evenly");
+  static_assert(CIN / 8 >= 8, "the head's y tiles take eight planes of the x ring");
+  static_assert(2 * HQ_PLANE <= 2 * ROWB, "two quads fit in two rows of a plane");
+  static_assert(OFF_BAR % 8 == 0 && SMEM <= kSmemMax, "a block's shared memory");
+};
+
+// The per-channel vectors after f1.bn1's two, in shared memory.
+enum { VEC_B1, VEC_A2, VEC_C2, VEC_B2, VEC_PB, VEC_F2A1, VEC_F2C1, VEC_F2B1, VEC_F2A2, VEC_F2C2,
+       VEC_F2B2, N_VEC };
+
+struct Args {
+  const float* sr;
+  const float* dem;
+  int ca, cb;
+  const float* vec[2 + N_VEC];  // f1.bn1's a and c, then VEC_* order
+  const void* w[4];             // the bf16 slabs: f1.conv1, f1.conv2 + proj, f2.conv1, f2.conv2
+  const float* head_w;          // hi/lo TF32 slabs, padded to HN columns
+  const float* head_b;
+  float* out;
+  int H, W, rows, strips, bands;
+};
+
+template <int NACC>
+__device__ __forceinline__ void fence_acc1(float (&acc)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// The compute warpgroups' barrier after generic writes that wgmma reads.
+__device__ __forceinline__ void sync_compute() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_barrier(1, 256);
+}
+
+// Where the weight slabs come from: the resident copy, or the ring (stage
+// g % NS, released by each compute warp's lane 0 once read).
+struct Feed {
+  uint32_t w, full, empty;
+  int g;
+};
+
+template <class P>
+__device__ __forceinline__ uint32_t take(const Feed& f, int resident_off) {
+  if (P::RESIDENT) {
+    mbar_wait_ptx(f.full, 0);
+    return f.w + resident_off;
+  }
+  const int st = f.g % P::NS;
+  mbar_wait_ptx(f.full + 8 * st, (f.g / P::NS) & 1);
+  return f.w + st * P::STAGE;
+}
+
+// Release the stage taken before the current one.
+template <class P>
+__device__ __forceinline__ void give(const Feed& f, int lane) {
+  if (!P::RESIDENT) mbar_arrive_lane0(f.empty + 8 * ((f.g - 1) % P::NS), lane);
+}
+
+// One convolution's sums for the tile row y (a band row) onto acc: nch
+// 16-channel chunks of in_ring, 9 taps each (ring rows y-1, y, y+1; a column
+// tap is one pixel), then with PROJ the C1 projection chunks of the raw x row
+// at raw_row. The order of the sums is the bf16 route's (residual first,
+// chunk outer, tap inner, the projection after): the same bits. woff: the
+// convolution's weights in the resident copy.
+template <class P, bool PROJ>
+__device__ __forceinline__ void conv_rows(float (&acc)[P::NACC], bool from_acc, uint32_t in_ring,
+                                          int y, int nch, int woff, uint32_t raw_row, Feed& f,
+                                          int lane) {
+  const uint32_t r0 = ((y - 1) & (RS - 1)) * ROWB;
+  const uint32_t r1 = (y & (RS - 1)) * ROWB;
+  const uint32_t r2 = ((y + 1) & (RS - 1)) * ROWB;
+  const uint64_t da = smem_desc(in_ring, RPLANE, 128);
+  for (int c = 0; c < nch; ++c) {
+    const uint64_t db = smem_desc(take<P>(f, woff + c * P::W_CHUNK), P::QB, 128);
+    const uint64_t dc = da + ((uint32_t)(2 * c * RPLANE) >> 4);
+    fence_acc1(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int ky = tap / 3;
+      const int kx = tap - 3 * ky;
+      const uint32_t row = ky == 0 ? r0 : ky == 1 ? r1 : r2;
+      wgmma_bf16(acc, dc + ((row + kx * 16) >> 4), db + tap * (P::W_SLAB / 16),
+                 tap > 0 || c > 0 || from_acc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc1(acc);
+    if (c > 0) give<P>(f, lane);
+    ++f.g;
+  }
+  if (PROJ) {
+    const uint64_t db = smem_desc(take<P>(f, woff + nch * P::W_CHUNK), P::QB, 128);
+    const uint64_t dr = smem_desc(raw_row, RAW_PLANE, 128);
+    fence_acc1(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < P::C1; ++c)
+      wgmma_bf16(acc, dr + (2 * c * RAW_PLANE) / 16, db + c * (P::W_SLAB / 16));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc1(acc);
+    give<P>(f, lane);
+    ++f.g;
+  }
+  wgmma_wait<0>();
+  fence_acc1(acc);
+  give<P>(f, lane);
+}
+
+// The epilogue of f1.conv1, f1.conv2 + proj (Y1) and f2.conv1: v = sums +
+// bias (+ the projection's bias), the next convolution's affine and ReLU,
+// bf16, zero outside the image (SAME padding after the activation, at this
+// tensor's own rows and columns), into ring row y. With Y1, v (f32) is kept
+// in res as the last residual. The m64nN fragment: thread (warp wq, lane l)
+// holds pixels 16 wq + l/4 and + 8, channels 8j + 2(l%4) and + 1.
+template <class P, bool Y1>
+__device__ __forceinline__ void act_rows(const float (&acc)[P::NACC], const float* vec, int vb,
+                                         int va, int vc, unsigned char* ring, int y, int gy,
+                                         int gx0, int H, int W, int wq, int lane,
+                                         float (&res)[P::NACC]) {
+  constexpr int N = P::N;
+  const float* bias = vec + vb * N;
+  const float* pb = vec + VEC_PB * N;
+  const float* na = vec + va * N;
+  const float* nc = vec + vc * N;
+  const bool row_in = gy >= 0 && gy < H;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = wq * 16 + (lane >> 2) + 8 * half;
+    const int gx = gx0 + p;
+    const bool in = row_in && gx >= 0 && gx < W;
+    unsigned char* dst = ring + (y & (RS - 1)) * ROWB + (p + 1) * 16 + (lane & 3) * 4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      float v0 = acc[4 * j + 2 * half] + bias[col];
+      float v1 = acc[4 * j + 2 * half + 1] + bias[col + 1];
+      if (Y1) {
+        v0 = v0 + pb[col];
+        v1 = v1 + pb[col + 1];
+        res[4 * j + 2 * half] = v0;
+        res[4 * j + 2 * half + 1] = v1;
+      }
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(act(v0, na[col], nc[col]), act(v1, na[col + 1], nc[col + 1]));
+      *reinterpret_cast<uint32_t*>(dst + j * RPLANE) =
+          in ? *reinterpret_cast<const uint32_t*>(&h) : 0u;
+    }
+  }
+}
+
+// x's f32 values of two rows (image rows gy0, gy0 + 1; columns gx0 ..
+// gx0 + 63) into registers, zeros outside the image: thread t takes float4 i
+// = t + 256 k, channels 4q .. 4q + 3 of pixel p of row r.
+template <class P>
+__device__ __forceinline__ void load_x(float4 (&px)[P::NPREF], const Args& a, int b, int gy0,
+                                       int gx0, int t) {
+  constexpr int NQ = P::CIN / 4;
+#pragma unroll
+  for (int k = 0; k < P::NPREF; ++k) {
+    const int i = t + 256 * k;
+    const int q = i % NQ, p = (i / NQ) % TP, r = i / (NQ * TP);
+    const int gy = gy0 + r, gx = gx0 + p, ch = 4 * q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
+      const size_t pix = ((size_t)b * a.H + gy) * a.W + gx;
+      v = ch < a.ca ? __ldg(reinterpret_cast<const float4*>(a.sr + pix * a.ca + ch))
+                    : __ldg(reinterpret_cast<const float4*>(a.dem + pix * a.cb + (ch - a.ca)));
+    }
+    px[k] = v;
+  }
+}
+
+// The two rows of x in registers into shared memory: with ACT as f1.conv1's
+// operand bf16(relu(a1 x + c1)), zero outside the image, at ring rows yr and
+// yr + 1; else as bf16(x), the projection's operand, at raw rows 0 and 1.
+template <class P, bool ACT>
+__device__ __forceinline__ void store_x(const float4 (&px)[P::NPREF], unsigned char* dst,
+                                        const float* vec, int yr, int gy0, int gx0, int H, int W,
+                                        int t) {
+  constexpr int NQ = P::CIN / 4;
+#pragma unroll
+  for (int k = 0; k < P::NPREF; ++k) {
+    const int i = t + 256 * k;
+    const int q = i % NQ, p = (i / NQ) % TP, r = i / (NQ * TP);
+    const float4 v = px[k];
+    __nv_bfloat162 h[2];
+    unsigned char* at;
+    if (ACT) {
+      const int gy = gy0 + r, gx = gx0 + p;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float4 fa = *reinterpret_cast<const float4*>(vec + 4 * q);
+      const float4 fc = *reinterpret_cast<const float4*>(vec + P::CIN + 4 * q);
+      h[0] = __floats2bfloat162_rn(act(v.x, fa.x, fc.x), act(v.y, fa.y, fc.y));
+      h[1] = __floats2bfloat162_rn(act(v.z, fa.z, fc.z), act(v.w, fa.w, fc.w));
+      if (!in) h[0] = h[1] = __floats2bfloat162_rn(0.f, 0.f);
+      at = dst + (q >> 1) * RPLANE + ((yr + r) & (RS - 1)) * ROWB + (p + 1) * 16 + (q & 1) * 8;
+    } else {
+      h[0] = __floats2bfloat162_rn(v.x, v.y);
+      h[1] = __floats2bfloat162_rn(v.z, v.w);
+      at = dst + (q >> 1) * RAW_PLANE + r * XROWB + p * 16 + (q & 1) * 8;
+    }
+    *reinterpret_cast<uint2*>(at) = *reinterpret_cast<const uint2*>(h);
+  }
+}
+
+// f2.conv2's epilogue and the head, for the tile row o (a band row) of this
+// warpgroup: y2 = sums + bias, split into TF32 hi and lo a quarter of the
+// channels (16) at a time over the scratch (eight octet planes of the x ring
+// whose two rows are free: [quad][64 pixels][4] f32, hi and lo of each k8
+// step, warpgroup wg's own four), then the 3xTF32 head as the bf16 route's
+// (lo*Whi, hi*Wlo, hi*Whi per k8 step, in order); the strip's own columns
+// and the band's own rows are stored.
+template <class P>
+__device__ __forceinline__ void head_rows(const float (&acc)[P::NACC], const float* bias,
+                                          unsigned char* scratch, uint32_t scratch_s, uint32_t h_s,
+                                          const Args& a, int b, int o, int rows, int gy, int gx0,
+                                          int wg, int wq, int lane) {
+  constexpr int N = P::N, HN = P::HN, HQ = HN * 16;
+  float hacc[HN / 2];
+#pragma unroll
+  for (int i = 0; i < HN / 2; ++i) hacc[i] = 0.f;
+#pragma unroll
+  for (int qq = 0; qq < N / 16; ++qq) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int px = wq * 16 + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * qq + jj;
+        const int col = 8 * j + 2 * (lane & 3);
+        float2 v;
+        v.x = acc[4 * j + 2 * half] + bias[col];
+        v.y = acc[4 * j + 2 * half + 1] + bias[col + 1];
+        float2 hi, lo;
+        hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
+        hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
+        const int lc = col - 16 * qq;
+        const int off = ((lc >> 2) & 1) * HQ_PLANE + px * 16 + (lc & 3) * 4;
+        *reinterpret_cast<float2*>(scratch + (wg * 4 + jj) * RPLANE + off) = hi;
+        *reinterpret_cast<float2*>(scratch + (wg * 4 + 2 + jj) * RPLANE + off) = lo;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(2 + wg, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = 2 * qq + kk;  // the k8 step over all N channels
+      const uint32_t hw = h_s + (ks >> 1) * (2 * CK * HN * 4) + (ks & 1) * 2 * HQ;
+      const uint64_t dbh = smem_desc(hw, HQ, 128);
+      const uint64_t dbl = smem_desc(hw + CK * HN * 4, HQ, 128);
+      const uint64_t dah = smem_desc(scratch_s + (wg * 4 + kk) * RPLANE, HQ_PLANE, 128);
+      const uint64_t dal = smem_desc(scratch_s + (wg * 4 + 2 + kk) * RPLANE, HQ_PLANE, 128);
+      wgmma_tf32(hacc, dal, dbh);
+      wgmma_tf32(hacc, dah, dbl);
+      wgmma_tf32(hacc, dah, dbh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < HN / 2; ++i) asm volatile("" : "+f"(hacc[i])::"memory");
+    // this quarter's tiles are read; the next may overwrite them
+    named_barrier(2 + wg, 128);
+  }
+  if (o < 0 || o >= rows || gy >= a.H) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int px = wq * 16 + (lane >> 2) + 8 * half;
+    const int gx = gx0 + px;
+    if (px < kHalo || px >= kHalo + TWO || gx >= a.W) continue;
+    store_head<P::CH>(a.out + (((size_t)b * a.H + gy) * a.W + gx) * P::CH, hacc, half, lane,
+                      a.head_b);
+  }
+}
+
+// out[b, y0 .. y0 + rows, x0 .. x0 + 56, :CH] of one unit (image b, column
+// strip x0 = 56 s, row band y0 = rows * band): the chain of the bf16 route in
+// one block, by steps of two rows down the band. Every operand a tile row
+// reads has 64 pixels, image columns x0 - 4 .. x0 + 59; each 3x3 leaves its
+// edge pixels unused, so the strip's 56 are exact after four. Step t brings
+// x rows 2t-4, 2t-3 (band rows; the f32 values loaded in the step before),
+// then warpgroup wg computes row 2t-5+wg of y (f1.conv1), 2t-6+wg of y1
+// (f1.conv2 + proj), 2t-7+wg of z (f2.conv1) and 2t-8+wg of the output
+// (f2.conv2 + y1, head): each reads rows its predecessor wrote in this step or
+// the one before, which a ring of four rows holds; y1's f32 value stays in
+// the registers of the warpgroup that stores its output row one step later.
+// Stage k runs from step k on; the last step is the one that writes the last
+// row. Only the output reaches device memory.
+template <int N, int CH, int CIN>
+__global__ void __launch_bounds__(kThreads, 1) bf16_band_kernel(const Args a) {
+  using P = Plan<N, CH, CIN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u = smem_u32(smem_raw);
+  const uint32_t base = (raw_u + 127u) & ~127u;
+  unsigned char* bp = smem_raw + (base - raw_u);
+  float* vec = reinterpret_cast<float*>(bp + P::OFF_VEC);
+  const uint32_t bars = base + P::OFF_BAR;
+  const uint32_t full = bars, empty = bars + 8 * P::NS, full_h = bars + 16 * P::NS;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int u = blockIdx.x;
+  const int b = u / (a.strips * a.bands);
+  const int x0 = (u % a.strips) * TWO;
+  const int y0 = ((u / a.strips) % a.bands) * a.rows;
+  const int rows = min(a.rows, a.H - y0);
+  const int last = (rows + 1) / 2 + 3;
+
+  if (tid == 0) {
+    for (int s = 0; s < P::NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(full_h, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < P::NVEC; i += kThreads) {
+    const int k = i < 2 * CIN ? i / CIN : 2 + (i - 2 * CIN) / N;
+    vec[i] = a.vec[k][i < 2 * CIN ? i % CIN : (i - 2 * CIN) % N];
+  }
+  // zeros over the rings: their pad pixels feed only pixels no output reads
+  for (int i = tid; i < P::OFF_RAW / 16; i += kThreads)
+    reinterpret_cast<uint4*>(bp)[i] = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == 8) {
+    // ---- producer: one thread issues every copy of the weights ----
+    if (lane != 0) return;
+    mbar_arrive_expect_tx(full_h, P::HEAD_W_BYTES);
+    bulk_load(base + P::OFF_H, a.head_w, P::HEAD_W_BYTES, full_h);
+    const unsigned char* w[4];
+    for (int k = 0; k < 4; ++k) w[k] = reinterpret_cast<const unsigned char*>(a.w[k]);
+    if (P::RESIDENT) {
+      mbar_arrive_expect_tx(full, P::W_BYTES);
+      bulk_load(base + P::OFF_W, w[0], P::W1, full);
+      bulk_load(base + P::OFF_W + P::W1, w[1], P::W2, full);
+      bulk_load(base + P::OFF_W + P::W1 + P::W2, w[2], P::W3, full);
+      bulk_load(base + P::OFF_W + P::W1 + P::W2 + P::W3, w[3], P::W3, full);
+      return;
+    }
+    // the compute warpgroups' order: stage k from step k on, its chunks,
+    // f1.conv2's projection slabs as one more
+    int g = 0;
+    for (int t = 0; t <= last; ++t)
+      for (int k = 1; k <= 4 && k <= t; ++k) {
+        const int nch = k == 1 ? P::C1 : P::CM;
+        for (int c = 0; c < nch + (k == 2); ++c) {
+          const int st = g % P::NS;
+          const int bytes = c < nch ? P::W_CHUNK : P::C1 * P::W_SLAB;
+          mbar_wait_ptx(empty + 8 * st, ((g / P::NS) & 1) ^ 1);
+          mbar_arrive_expect_tx(full + 8 * st, bytes);
+          bulk_load(base + P::OFF_W + st * P::STAGE, w[k - 1] + (size_t)c * P::W_CHUNK, bytes,
+                    full + 8 * st);
+          ++g;
+        }
+      }
+    return;
+  }
+
+  // ---- compute warpgroups ----
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int gx0 = x0 - kHalo;
+  unsigned char* x_ring = bp;
+  unsigned char* raw = bp + P::OFF_RAW;
+  const uint32_t x_s = base, y_s = base + P::OFF_Y, y1_s = base + P::OFF_Y1, z_s = base + P::OFF_Z;
+  const uint32_t raw_s = base + P::OFF_RAW;
+  const float* nvec = vec + 2 * CIN;
+  Feed f = {base + P::OFF_W, full, empty, 0};
+  float4 px[P::NPREF];
+  float acc[P::NACC], res[P::NACC], res_next[P::NACC];
+  load_x<P>(px, a, b, y0 - kHalo, gx0, tid);
+  for (int t = 0; t <= last; ++t) {
+    const int yr = 2 * t - kHalo;  // band row of the step's first x row
+    store_x<P, true>(px, x_ring, vec, yr, y0 + yr, gx0, a.H, a.W, tid);
+    sync_compute();
+    if (t >= 1) {
+      const int y = 2 * t - 5 + wg;
+      conv_rows<P, false>(acc, false, x_s, y, P::C1, 0, 0, f, lane);
+      act_rows<P, false>(acc, nvec, VEC_B1, VEC_A2, VEC_C2, bp + P::OFF_Y, y, y0 + y, gx0, a.H,
+                         a.W, wq, lane, res_next);
+    }
+    sync_compute();
+    if (t >= 2) {
+      const int y = 2 * t - 6 + wg;  // its raw x row: row wg of the step before's
+      conv_rows<P, true>(acc, false, y_s, y, P::CM, P::W1, raw_s + wg * XROWB, f, lane);
+      act_rows<P, true>(acc, nvec, VEC_B2, VEC_F2A1, VEC_F2C1, bp + P::OFF_Y1, y, y0 + y, gx0,
+                        a.H, a.W, wq, lane, res_next);
+    }
+    // every read of the raw rows is done: this step's go there, and the next
+    // step's x comes in
+    named_barrier(1, 256);
+    store_x<P, false>(px, raw, vec, yr, y0 + yr, gx0, a.H, a.W, tid);
+    if (t < last) load_x<P>(px, a, b, y0 + yr + 2, gx0, tid);
+    sync_compute();
+    if (t >= 3) {
+      const int y = 2 * t - 7 + wg;
+      conv_rows<P, false>(acc, false, y1_s, y, P::CM, P::W1 + P::W2, 0, f, lane);
+      act_rows<P, false>(acc, nvec, VEC_F2B1, VEC_F2A2, VEC_F2C2, bp + P::OFF_Z, y, y0 + y, gx0,
+                         a.H, a.W, wq, lane, res_next);
+    }
+    sync_compute();
+    if (t >= 4) {
+      const int o = 2 * t - 8 + wg;
+#pragma unroll
+      for (int i = 0; i < P::NACC; ++i) acc[i] = res[i];
+      conv_rows<P, false>(acc, true, z_s, o, P::CM, P::W1 + P::W2 + P::W3, 0, f, lane);
+      mbar_wait_ptx(full_h, 0);
+      // the x ring's rows 2t-6 and 2t-5: read by f1.conv1 of this step for the last time
+      const int free_row = ((2 * t - 6) & (RS - 1)) * ROWB;
+      head_rows<P>(acc, nvec + VEC_F2B2 * N, x_ring + free_row, x_s + free_row,
+                   base + P::OFF_H, a, b, o, rows, y0 + o, gx0, wg, wq, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < P::NACC; ++i) res[i] = res_next[i];
+    // the head's tiles are read before the next step's x goes over them
+    named_barrier(1, 256);
+  }
+}
+
+template <int N, int CH, int CIN>
+cudaError_t launch(const Args& args, int units, cudaStream_t stream) {
+  using P = Plan<N, CH, CIN>;
+  static bool done[64] = {};
+  cudaError_t err = bf::opt_in(bf16_band_kernel<N, CH, CIN>, P::SMEM, done);
+  if (err != cudaSuccess) return err;
+  bf16_band_kernel<N, CH, CIN><<<units, kThreads, P::SMEM, stream>>>(args);
+  return cudaGetLastError();
+}
+
+}  // namespace band
+
 // Positions in the packed tensor-core weight list (TC_PACK_KEYS in hr_tail.py).
 enum { P_F1_W1, P_F1_W2_PW, P_F2_W1, P_F2_W2, P_HEAD_W, N_PACKS };
 
@@ -2460,9 +2999,10 @@ static int bf16_chain(const float* sr, const float* dem, int B, int H, int W, in
   return (int)err;
 }
 
-// bf16 route (the TPU kernel's mode="bf16"), the widths of hr_tail_tc_launch.
-// packs: tc::N_PACKS device pointers in TC_PACK_KEYS order, bf16 slabs for the
-// four convolutions and hi/lo TF32 slabs for the head. Scratch: x_act and
+// bf16 route (the TPU kernel's mode="bf16") at the flagship's widths; the
+// other two layouts take hr_tail_bf16_band_launch. packs: tc::N_PACKS device
+// pointers in TC_PACK_KEYS order, bf16 slabs for the four convolutions and
+// hi/lo TF32 slabs for the head. Scratch: x_act and
 // x_raw [B,H,W,ca+cb] bf16, act_a and act_b [B,H,W,cm] bf16, y1 [B,H,W,cm]
 // f32; every buffer 16-byte aligned. A tensor map that cannot be encoded
 // returns kEncodeFailed + its CUresult; widths not instantiated,
@@ -2488,11 +3028,78 @@ extern "C" int hr_tail_bf16_launch(const float* sr, const float* dem, int B, int
   if (cm == 128 && ch == 16)
     return bf16_chain<128, 16, 1>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a,
                                   act_b, y1, out, stream);
-  if (cm == 64 && ch == 4)
-    return bf16_chain<64, 4, 2>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b,
-                                y1, out, stream);
-  if (cm == 32 && ch == 1)
-    return bf16_chain<32, 1, 4>(sr, dem, B, H, W, ca, cb, wt, packs, x_act, x_raw, act_a, act_b,
-                                y1, out, stream);
+  return kNotInstantiated;
+}
+
+// ---- bf16 band route ----
+
+// Rows a band: the fewest waves of blocks (one an SM) times a block's steps
+// (two rows each, its own rows and the 8 of the halo), so that one tile
+// still fills the card (130 blocks at hr_s2d 2 and 1).
+static void band_rows(int B, int H, int strips, int sms, int* rows, int* bands) {
+  long long best = -1;
+  for (int n = 1; n <= H; ++n) {
+    const int r = (H + n - 1) / n;
+    if ((H + r - 1) / r != n) continue;  // the same rows as a smaller n
+    const long long units = (long long)B * strips * n;
+    const long long cost = (units + sms - 1) / sms * ((r + 1) / 2 + 4);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *rows = r;
+      *bands = n;
+    }
+  }
+}
+
+template <int N, int CH, int CIN>
+static int bf16_band_chain(const float* sr, const float* dem, int B, int H, int W, int ca, int cb,
+                           const float* const* wt, const void* const* pk, float* out,
+                           cudaStream_t stream) {
+  namespace band = tc::band;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  band::Args a;
+  a.sr = sr;
+  a.dem = dem;
+  a.ca = ca;
+  a.cb = cb;
+  const int vecs[2 + band::N_VEC] = {F1_A1, F1_C1, F1_B1, F1_A2, F1_C2, F1_B2, F1_PB,
+                                     F2_A1, F2_C1, F2_B1, F2_A2, F2_C2, F2_B2};
+  for (int i = 0; i < 2 + band::N_VEC; ++i) a.vec[i] = wt[vecs[i]];
+  const int convs[4] = {tc::P_F1_W1, tc::P_F1_W2_PW, tc::P_F2_W1, tc::P_F2_W2};
+  for (int k = 0; k < 4; ++k) a.w[k] = pk[convs[k]];
+  a.head_w = reinterpret_cast<const float*>(pk[tc::P_HEAD_W]);
+  a.head_b = wt[HEAD_B];
+  a.out = out;
+  a.H = H;
+  a.W = W;
+  a.strips = (W + band::TWO - 1) / band::TWO;
+  band_rows(B, H, a.strips, sms, &a.rows, &a.bands);
+  const long long units = (long long)B * a.strips * a.bands;
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return (int)band::launch<N, CH, CIN>(a, (int)units, stream);
+}
+
+// bf16 band route (the TPU kernel's mode="bf16" in one launch, every
+// intermediate on chip): (cm, ch, ca + cb) = (64, 4, 96) and (32, 1, 64), the
+// JAX package's hr_s2d 2 and 1; ca and cb multiples of 4. packs as for
+// hr_tail_bf16_launch. No scratch. Other widths: kNotInstantiated.
+extern "C" int hr_tail_bf16_band_launch(const float* sr, const float* dem, int B, int H, int W,
+                                        int ca, int cb, int cm, int ch,
+                                        const void* const* weights, const void* const* packs,
+                                        float* out, void* stream_ptr) {
+  if (ca <= 0 || ca % 4 || cb % 4) return (int)cudaErrorInvalidValue;
+  const void* aligned[] = {sr, dem, out};
+  for (const void* p : aligned)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < tc::N_PACKS; ++i)
+    if (reinterpret_cast<uintptr_t>(packs[i]) % 16) return (int)cudaErrorInvalidValue;
+  const float* const* wt = reinterpret_cast<const float* const*>(weights);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (cm == 64 && ch == 4 && ca + cb == 96)
+    return bf16_band_chain<64, 4, 96>(sr, dem, B, H, W, ca, cb, wt, packs, out, stream);
+  if (cm == 32 && ch == 1 && ca + cb == 64)
+    return bf16_band_chain<32, 1, 64>(sr, dem, B, H, W, ca, cb, wt, packs, out, stream);
   return kNotInstantiated;
 }

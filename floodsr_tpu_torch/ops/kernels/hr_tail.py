@@ -30,14 +30,26 @@ run under the ``bf16`` precision policy): inputs, intermediates, affines,
 biases and residual adds stay f32; at the four 3×3 convolutions and at the
 projection the activated operand and the weight are rounded to bf16 and
 multiplied in one pass with f32 accumulation; the head stays at three-pass
-precision. Two more routes carry it on the card, counted like the others:
-``"bf16"`` (``wgmma`` m64nNk16, N = Cm, in bf16 at the tensor-core widths, weights
-from :func:`pack_hr_tail_bf16`; each launch stores the next convolution's
-operand already activated and rounded, as bf16, and the next reads it by TMA;
-scratch :func:`bf16_scratch`) and ``"bf16_direct"`` (the direct kernels with
-the operands rounded to bf16 in registers, any widths). The head is a 3xTF32
-product on the first and an f32 FMA product on the second, both at least as
-exact as the TPU kernel's three-pass bf16 split.
+precision. Three more routes carry it on the card, counted like the others
+(:func:`bf16_route` picks one from the channel counts), the first two with
+weights from :func:`pack_hr_tail_bf16`:
+
+- ``"bf16"`` at the flagship's widths (:data:`BF16_WIDTHS`): ``wgmma``
+  m64nNk16, N = Cm, a pre-pass and four launches; each launch stores the next
+  convolution's operand already activated and rounded, as bf16, and the next
+  reads it by TMA; scratch :func:`bf16_scratch`.
+- ``"bf16_band"`` at the JAX package's other two HR layouts
+  (:data:`BAND_LAYOUTS`, ``hr_s2d`` 2 and 1): the whole chain in ONE launch, as
+  the TPU kernel's row bands do it. A block walks a strip of 56 output columns
+  down a band of rows, two rows a step, and keeps every operand in shared
+  memory (rings of four rows, x read once) and the last residual in
+  registers: only the output reaches device memory, and there is no scratch.
+  The same sums in the same order as ``"bf16"``: the same bits.
+- ``"bf16_direct"`` (the direct kernels with the operands rounded to bf16 in
+  registers, any widths).
+
+The head is a 3xTF32 product on the first two and an f32 FMA product on the
+last, each at least as exact as the TPU kernel's three-pass bf16 split.
 :func:`hr_tail_reference_bf16` is the plain version: what a CPU tensor runs
 in this mode and what the kernels are held against.
 """
@@ -71,14 +83,19 @@ TC_WIDTHS = ((128, 16), (64, 4), (32, 1))
 TC_CK, TC_HEAD_N = 16, 8
 #: What a tensor-core launcher returns for a (Cm, Ch) it was not built for.
 NOT_INSTANTIATED = 200000
+#: (Cm, Ch) pairs the ``"bf16"`` route's kernels are instantiated for.
+BF16_WIDTHS = ((128, 16),)
+#: (Ca+Cb, Cm, Ch) of the ``"bf16_band"`` route: ``hr_s2d`` 2 (64 + 32 -> 64 ->
+#: 4) and 1 (32 + 32 -> 32 -> 1) at base and fuse width 32.
+BAND_LAYOUTS = ((96, 64, 4), (64, 32, 1))
 
 #: hr_tail calls that launched the kernels since the last reset
 #: (ops.kernels.reset_launch_counts); each call is four kernel launches on
-#: the tensor-core route, five on the bf16 one (a pre-pass first) and six on
-#: the direct ones
+#: the tensor-core route, five on the bf16 one (a pre-pass first), one on the
+#: bf16 band route and six on the direct ones
 launches = 0
 #: the same calls by route
-route_launches = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_direct": 0}
+route_launches = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_band": 0, "bf16_direct": 0}
 
 
 def pack_hr_tail_weights(f1, f2, head, *, bn_eps: float) -> list[torch.Tensor]:
@@ -182,6 +199,42 @@ def tc_eligible(ca: int, cb: int, cm: int, ch: int) -> bool:
         (cm, ch) in TC_WIDTHS and ca > 0 and ca % 4 == 0 and cb % 4 == 0
         and (ca + cb) % TC_CK == 0
     )
+
+
+def bf16_route(ca: int, cb: int, cm: int, ch: int) -> str:
+    """The route of ``mode="bf16"`` for these channel counts."""
+    if tc_eligible(ca, cb, cm, ch):
+        if (ca + cb, cm, ch) in BAND_LAYOUTS:
+            return "bf16_band"
+        if (cm, ch) in BF16_WIDTHS:
+            return "bf16"
+    return "bf16_direct"
+
+
+#: The ``"bf16_band"`` route's unit: a strip of ``BAND_COLS`` output columns
+#: (a 64-pixel tile row less ``BAND_HALO`` pixels each side: four 3×3
+#: convolutions) down a band of rows, two rows a step.
+BAND_COLS, BAND_HALO = 56, 4
+
+
+def band_plan(b: int, h: int, w: int, sms: int = 132) -> tuple[int, int, int]:
+    """The ``"bf16_band"`` launch's units as its launcher plans them:
+    ``(rows a band, bands, strips)``, one block each.
+
+    The rows minimize the waves of blocks (one an SM) times a block's steps
+    (two rows each, its own rows and the 2 x ``BAND_HALO`` of the halo), the
+    fewest bands among equals; so one tile still fills the card.
+    """
+    strips = -(-w // BAND_COLS)
+    best = None
+    for n in range(1, h + 1):
+        rows = -(-h // n)
+        if -(-h // rows) != n:
+            continue  # the same rows as a smaller n
+        cost = -(-(b * strips * n) // sms) * ((rows + 1) // 2 + BAND_HALO)
+        if best is None or cost < best[0]:
+            best = (cost, rows, n)
+    return best[1], best[2], strips
 
 
 def head_columns(ch: int) -> int:
@@ -288,8 +341,8 @@ def pack_hr_tail_bf16(weights) -> list[torch.Tensor]:
     octet][Cout][8 channels]``: the no-swizzle K-major layout of ``wgmma``'s
     B operand for a 2-byte type, one k16 step a slab. The head entry is the
     tensor-core route's hi/lo TF32 slabs (:func:`pack_hr_tail_tc`, padded as
-    there): the head keeps its three-pass product. Build it once per set of
-    weights.
+    there): the head keeps its three-pass product. The ``"bf16_band"`` route
+    reads the same pack. Build it once per set of weights.
     """
     w = dict(zip(WEIGHT_KEYS, weights))
     packs = [
@@ -334,7 +387,7 @@ def hr_tail_reference_3xtf32(
 
 
 def bf16_scratch(b: int, h: int, w: int, ca: int, cb: int, cm: int) -> dict:
-    """The bf16 route's scratch, ``{name: (shape, dtype)}`` in launch order.
+    """The ``"bf16"`` route's scratch, ``{name: (shape, dtype)}`` in launch order.
 
     ``x_act`` = bf16(relu(f1.bn1(x))) and ``x_raw`` = bf16(x) of x = concat(sr,
     dem), from the pre-pass; ``act_a`` holds f1.conv2's operand, then
@@ -402,6 +455,8 @@ def _lib():
         ("hr_tail_bf16_launch",
          [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
           ptr]),
+        ("hr_tail_bf16_band_launch",
+         [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr]),
     ):
         fn = getattr(lib, name)
         if fn.restype is not ctypes.c_int or not fn.argtypes:
@@ -477,7 +532,7 @@ def _pack_shapes(route: str, want: dict) -> list[tuple[tuple[int, ...], torch.dt
         slabs = sum(want[key].numel() // (TC_CK * cout) for key in keys)
         if keys == ("head_w",):
             cout = head_columns(cout)
-        if route == "bf16" and keys != ("head_w",):
+        if route in ("bf16", "bf16_band") and keys != ("head_w",):
             out.append(((slabs, TC_CK // 8, cout, 8), torch.bfloat16))
         else:
             out.append(((slabs, 2, TC_CK // 4, cout, 4), torch.float32))
@@ -491,13 +546,14 @@ def hr_tail_cuda(
     """Launch the hand-written kernels: NHWC f32 contiguous CUDA tensors.
 
     ``mode`` ("f32" or "bf16") names the arithmetic; within it the widths
-    alone choose the route: tensor cores where :func:`tc_eligible` ("tensor"
-    in 3xTF32, "bf16" in bf16), else the direct kernels ("direct",
-    "bf16_direct"). A tensor-core route needs ``tc_pack`` of the same weights,
-    built once per set of weights: :func:`pack_hr_tail_tc` for "tensor",
-    :func:`pack_hr_tail_bf16` for "bf16". ``route`` forces one (and with it
-    the arithmetic), for the tests and for timing routes side by side;
-    "tensor" and "bf16" raise on widths they do not take.
+    alone choose the route: in f32 tensor cores where :func:`tc_eligible`
+    ("tensor", 3xTF32), else the direct kernels ("direct"); in bf16
+    :func:`bf16_route` ("bf16", "bf16_band" or "bf16_direct"). A tensor-core
+    route needs ``tc_pack`` of the same weights, built once per set of
+    weights: :func:`pack_hr_tail_tc` for "tensor", :func:`pack_hr_tail_bf16`
+    for "bf16" and "bf16_band". ``route`` forces one (and with it the
+    arithmetic), for the tests and for timing routes side by side; the
+    tensor-core routes raise on widths they do not take.
     """
     global launches
     from floodsr_tpu_torch.ops.kernels import _build
@@ -509,18 +565,23 @@ def hr_tail_cuda(
         if mode not in ("f32", "bf16"):
             raise ValueError(f"mode must be 'f32' or 'bf16'; got {mode!r}")
         if mode == "bf16":
-            route = "bf16" if eligible else "bf16_direct"
+            route = bf16_route(ca, cb, cm, ch)
         else:
             route = "tensor" if eligible else "direct"
     if route not in route_launches:
         raise ValueError(f"route must be one of {sorted(route_launches)}; got {route!r}")
-    on_tensor_cores = route in ("tensor", "bf16")
+    on_tensor_cores = route in ("tensor", "bf16", "bf16_band")
     label = "tensor-core" if route == "tensor" else route
     if on_tensor_cores:
         if not eligible:
             raise ValueError(
                 f"the {label} route takes (Cm, Ch) in {TC_WIDTHS}, Ca and Cb multiples "
                 f"of 4 and Ca+Cb a multiple of {TC_CK}; got Ca={ca} Cb={cb} Cm={cm} Ch={ch}"
+            )
+        if route == "bf16_band" and (ca + cb, cm, ch) not in BAND_LAYOUTS:
+            raise ValueError(
+                f"the bf16_band route takes (Ca+Cb, Cm, Ch) in {BAND_LAYOUTS}; "
+                f"got Ca={ca} Cb={cb} Cm={cm} Ch={ch}"
             )
         packer = "pack_hr_tail_tc" if route == "tensor" else "pack_hr_tail_bf16"
         if tc_pack is None:
@@ -558,7 +619,12 @@ def hr_tail_cuda(
     wptrs = ctypes.cast(_pointers(weights), ctypes.c_void_p)
     stream = _build.current_stream_ptr(sr.device)
     with torch.cuda.device(sr.device):
-        if route == "bf16":
+        if route == "bf16_band":
+            rc = lib.hr_tail_bf16_band_launch(
+                sr.data_ptr(), dem.data_ptr(), b, h, w, ca, cb, cm, ch, wptrs,
+                ctypes.cast(_pointers(tc_pack), ctypes.c_void_p), out.data_ptr(), stream,
+            )
+        elif route == "bf16":
             offsets, nbytes = bf16_workspace(bf16_scratch(b, h, w, ca, cb, cm))
             workspace = torch.empty(nbytes, dtype=torch.uint8, device=sr.device)
             rc = lib.hr_tail_bf16_launch(

@@ -127,7 +127,7 @@ def test_tile_stats_kernel_rejects_what_it_does_not_take(cuda_device):
         ts.tile_stats(torch.zeros(2, 8, 16, device=cuda_device)[:, :, ::2], 95.0)
 
 
-def _tail_weights(ca, cb, cm, ch, device, seed=0):
+def _tail_weights(ca, cb, cm, ch, device, seed=0, offsets=False):
     rng = np.random.default_rng(seed)
     cin = ca + cb
     shapes = {
@@ -146,6 +146,8 @@ def _tail_weights(ca, cb, cm, ch, device, seed=0):
         elif len(shape) > 1:
             fan_in = int(np.prod(shape[:-1]))
             v = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+        elif offsets and key.endswith(("_c1", "_c2")):
+            v = np.full(shape, 0.5)  # relu(c) != 0: the padding must come after the activation
         else:
             v = rng.normal(0.0, 0.1, shape)
         out.append(torch.from_numpy(v.astype(np.float32)).to(device))
@@ -319,7 +321,58 @@ def test_hr_tail_tensor_core_routes_at_the_layout_widths(cuda_device, s2d, shape
         err16 = float((got16 - want16).abs().max())
         rms16 = float((got16 - want16).square().mean().sqrt())
         assert err16 <= 1e-2 * scale16 and rms16 < 0.25 * rms_gap, (err16, rms16, rms_gap)
-    assert ht.route_launches == _routes(tensor=2, bf16=2)
+    assert ht.route_launches == _routes(tensor=2, bf16_band=2)
+
+
+# K1's bf16 band route (one launch, every intermediate on chip) at the layout
+# widths: 8 tiles and 1 (the launcher's own band plan, 240 and 130 blocks at
+# hr_s2d 1), and an odd height that is not a multiple of the band nor the
+# width of the strip; twice on the same inputs (bit-equal: the sums' order is
+# fixed); against the plain version within chip_smoke.py's BF16_GATE, and its
+# flipped roundings rare (rms under a quarter of the bf16 vs f32 distance).
+@pytest.mark.parametrize("s2d", [2, 1])
+@pytest.mark.parametrize("shape", ["8_tiles", "1_tile", "odd"])
+def test_hr_tail_bf16_band_route_matches_the_plain_bf16_version(cuda_device, s2d, shape):
+    ca, cb, cm, ch, tile = LAYOUT_WIDTHS[s2d]
+    b, h, w = {"8_tiles": (8, tile, tile), "1_tile": (1, tile, tile), "odd": (3, 37, 133)}[shape]
+    sr, dem = _tail_inputs(b, h, w, ca, cb, cuda_device, seed=40 + s2d)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device, seed=50 + s2d, offsets=True)
+    want = ht.hr_tail_reference_bf16(sr, dem, *weights)
+    f32 = ht.hr_tail_reference(sr, dem, *weights)
+    pack = ht.pack_hr_tail_bf16(weights)
+    _reset_routes()
+    got = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    again = ht.hr_tail(sr, dem, *weights, tc_pack=pack, mode="bf16")
+    torch.cuda.synchronize()
+    assert ht.route_launches == _routes(bf16_band=2) and ht.launches == 2
+    assert got.shape == (b, h, w, ch) and torch.equal(got, again)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rms = float((got - want).square().mean().sqrt())
+    gap = float((want - f32).square().mean().sqrt())
+    assert err <= 1e-2 * scale and rms < 0.25 * gap, (err, rms, gap, scale)
+
+
+def test_hr_tail_bf16_band_route_refuses_what_it_does_not_take(cuda_device):
+    ca, cb, cm, ch, _ = LAYOUT_WIDTHS[1]
+    sr, dem = _tail_inputs(1, 8, 8, ca, cb, cuda_device)
+    weights = _tail_weights(ca, cb, cm, ch, cuda_device)
+    pack = ht.pack_hr_tail_bf16(weights)
+    # the bf16 route's kernels are not built at these widths any more
+    with pytest.raises(ValueError, match="bf16 kernels were not built for Cm=32, Ch=1"):
+        ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16")
+    # the band route takes its two layouts only
+    fw = _tail_weights(128, 32, 128, 16, cuda_device)
+    fsr, fdem = _tail_inputs(1, 8, 8, 128, 32, cuda_device)
+    with pytest.raises(ValueError, match="bf16_band route takes"):
+        ht.hr_tail_cuda(fsr, fdem, *fw, tc_pack=ht.pack_hr_tail_bf16(fw), route="bf16_band")
+    # the 3xTF32 pack is not the bf16 one
+    with pytest.raises(ValueError, match="packed weight f1_w1 must be torch.bfloat16"):
+        ht.hr_tail(sr, dem, *weights, tc_pack=ht.pack_hr_tail_tc(weights), mode="bf16")
+    # float4 loads: an input one float into its storage is refused
+    store = torch.zeros(sr.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte boundary for the bf16_band route"):
+        ht.hr_tail(store[1:].view(sr.shape), dem, *weights, tc_pack=pack, mode="bf16")
 
 
 def test_hr_tail_launchers_refuse_widths_they_were_not_built_for(cuda_device):
@@ -333,7 +386,11 @@ def test_hr_tail_launchers_refuse_widths_they_were_not_built_for(cuda_device):
     common = (buf.data_ptr(), buf.data_ptr(), 1, 8, 8, 16, 16, 16, 4, ptrs, ptrs)
     rc_tc = lib.hr_tail_tc_launch(*common, *[buf.data_ptr()] * 3, 0)
     rc_bf16 = lib.hr_tail_bf16_launch(*common, *[buf.data_ptr()] * 6, 0)
-    assert rc_tc == rc_bf16 == ht.NOT_INSTANTIATED
+    rc_band = lib.hr_tail_bf16_band_launch(*common, buf.data_ptr(), 0)
+    assert rc_tc == rc_bf16 == rc_band == ht.NOT_INSTANTIATED
+    # and the band launcher at a layout's (Cm, Ch) with another input width
+    layout = (buf.data_ptr(), buf.data_ptr(), 1, 8, 8, 48, 16, 64, 4, ptrs, ptrs)
+    assert lib.hr_tail_bf16_band_launch(*layout, buf.data_ptr(), 0) == ht.NOT_INSTANTIATED
 
 
 # The small widths' kernel (A from registers, conv_tc_rs_kernel): a batch of 3

@@ -360,9 +360,9 @@ def test_route_counters_reset_with_the_launch_counts():
     from floodsr_tpu_torch.ops import kernels
 
     ht.launches = 4
-    ht.route_launches.update(tensor=1, direct=1, bf16=1, bf16_direct=1)
+    ht.route_launches.update(tensor=1, direct=1, bf16=1, bf16_band=1, bf16_direct=1)
     kernels.reset_launch_counts()
-    zeros = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_direct": 0}
+    zeros = {"tensor": 0, "direct": 0, "bf16": 0, "bf16_band": 0, "bf16_direct": 0}
     assert ht.launches == 0 and ht.route_launches == zeros
     assert kernels.route_counts()["hr_tail"] == zeros
 

@@ -152,7 +152,7 @@ def test_bf16_pack_layout(ca, cb):
     # the head keeps the tensor-core route's hi/lo TF32 slabs
     assert torch.equal(pack[4], ht.pack_hr_tail_tc(weights)[4])
     assert [s for s, _ in ht._pack_shapes("bf16", w)] == [tuple(t.shape) for t in pack]
-    assert set(ht.route_launches) == {"tensor", "direct", "bf16", "bf16_direct"}
+    assert set(ht.route_launches) == {"tensor", "direct", "bf16", "bf16_band", "bf16_direct"}
 
 
 # (b) the policies, their stages and their hazards

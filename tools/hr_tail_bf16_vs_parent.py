@@ -24,8 +24,15 @@ the host's time per call (``time.perf_counter`` around the wrapper's call,
 the launches enqueued, the card idle before each call) is taken with the two
 interleaved call by call, twice, each time in the other order. The other routes (3xTF32 tensor cores, direct, direct bf16) of both
 libraries are compared bit for bit at 8 tiles, with a sha256 of each output's
-bytes. One JSON line, with the card's name and power limit; the exit code is
-1 when any comparison differs.
+bytes, and the 3xTF32 route is timed in turns too. Then at the JAX
+package's other two HR layouts (``hr_tail_s2d`` 2 and
+1: ``chip_smoke.layout_tail``'s weights from ``init_resunet(--seed)`` and
+features at 8 tiles), the earlier library's ``"bf16"`` route against this
+one's ``"bf16_band"`` route (one launch, no scratch): bit for bit at 8 tiles,
+at 1 and at a ragged 2 x 37 x 133, timed in turns at 8 tiles and 1, the
+device time of each call traced, and the peak device memory of one 8-tile
+call of each (the workspace included). One JSON line, with the card's name and
+power limit; the exit code is 1 when any comparison differs.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (time_ms, device_profile, bound, FLAGSHIP)
+import chip_smoke  # noqa: E402  (time_ms, device_profile, bound, peak_mib, layout_tail)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -157,6 +164,73 @@ def host_us(torch, fns, calls: int) -> list:
     return [statistics.median(t) * 1e6 for t in times]
 
 
+def layouts(torch, ht, earlier_lib_for, seed: int, reps: int) -> dict:
+    """The earlier ``"bf16"`` route against the ``"bf16_band"`` route at
+    ``hr_s2d`` 2 and 1 (the module docstring)."""
+    lib = ht._lib
+    out = {}
+    for s2d in chip_smoke.HR_TAIL_LAYOUTS:
+        t = chip_smoke.layout_tail(torch, seed, s2d)
+        weights, sr8, dem8 = t["weights"], t["sr"], t["dem"]
+        ca, cb, cm, ch = t["dims"]
+        pack = ht.pack_hr_tail_bf16(weights)
+        earlier_lib = earlier_lib_for(cm)
+
+        def earlier(sr, dem):
+            ht._lib = lambda: earlier_lib
+            try:
+                return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16")
+            finally:
+                ht._lib = lib
+
+        def current(sr, dem):
+            return ht.hr_tail_cuda(sr, dem, *weights, tc_pack=pack, route="bf16_band")
+
+        work = chip_smoke.tail_work(sr8, dem8, weights, cm, ch)
+        bound_ms = chip_smoke.bound(work["bytes"], 2 * work["macs"], chip_smoke.PEAK_BF16_PER_S)[0]
+        entry = {"widths": f"{ca}+{cb}->{cm}->{ch}"}
+        shapes = {
+            "tiles_8": (sr8, dem8), "tiles_1": (sr8[:1], dem8[:1]),
+            "ragged": (sr8[:2, :37, :133].contiguous(), dem8[:2, :37, :133].contiguous()),
+        }
+        for name, (sr, dem) in shapes.items():
+            a, c = earlier(sr, dem), current(sr, dem)
+            again = current(sr, dem)
+            torch.cuda.synchronize()
+            row = {
+                "bit_equal": bool(torch.equal(a, c)), "repeatable": bool(torch.equal(c, again)),
+                "sha256": {"earlier": digest(a), "current": digest(c)},
+                "max_abs_diff": float((a - c).abs().max()),
+            }
+            if name != "ragged":
+                turns = [
+                    chip_smoke.time_ms(torch, lambda: earlier(sr, dem), reps=reps),
+                    chip_smoke.time_ms(torch, lambda: current(sr, dem), reps=reps),
+                    chip_smoke.time_ms(torch, lambda: current(sr, dem), reps=reps),
+                    chip_smoke.time_ms(torch, lambda: earlier(sr, dem), reps=reps),
+                ]
+                tiles = int(sr.shape[0])
+                device = {}
+                for label, fn in (("earlier", earlier), ("current", current)):
+                    prof = chip_smoke.device_profile(torch, lambda: [fn(sr, dem) for _ in range(5)])
+                    device[label] = prof["kernel_device_ms"]["hr_tail"] / 5
+                row.update(
+                    ms_earlier=[turns[0], turns[3]], ms_current=[turns[1], turns[2]],
+                    speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]),
+                    device_ms=device, bound_ms=bound_ms * tiles / 8,
+                    share_of_bound=bound_ms * tiles / 8 / min(turns[1], turns[2]),
+                )
+            entry[name] = row
+        entry["peak_mib_8_tiles"] = {
+            "earlier": chip_smoke.peak_mib(torch, lambda: earlier(sr8, dem8)),
+            "current": chip_smoke.peak_mib(torch, lambda: current(sr8, dem8)),
+        }
+        out[f"s2d_{s2d}"] = entry
+        del t, weights, sr8, dem8, pack
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("parent_source", type=Path, help="the earlier csrc/hr_tail.cu")
@@ -259,9 +333,28 @@ def main(argv=None) -> int:
         hashes[route] = {"earlier": digest(a), "current": digest(c)}
     report["other_routes_bit_equal_8_tiles"] = others
     report["other_routes_sha256_8_tiles"] = hashes
+    # the flagship's 3xTF32 route, timed in turns as the bf16 route above
+    tc_turns = [
+        chip_smoke.time_ms(torch, lambda: earlier_route(sr8, dem8, "tensor", tc_pack), reps=args.reps),
+        chip_smoke.time_ms(torch, lambda: ht.hr_tail_cuda(sr8, dem8, *weights, tc_pack=tc_pack,
+                                                          route="tensor"), reps=args.reps),
+        chip_smoke.time_ms(torch, lambda: ht.hr_tail_cuda(sr8, dem8, *weights, tc_pack=tc_pack,
+                                                          route="tensor"), reps=args.reps),
+        chip_smoke.time_ms(torch, lambda: earlier_route(sr8, dem8, "tensor", tc_pack), reps=args.reps),
+    ]
+    report["tensor_ms_8_tiles"] = {"earlier": [tc_turns[0], tc_turns[3]],
+                                   "current": [tc_turns[1], tc_turns[2]]}
     engine.close()
+    report["layouts"] = layouts(
+        torch, ht, lambda layout_cm: EarlierLibrary(parent, abi, layout_cm), args.seed, args.reps
+    )
     print(json.dumps({"hr_tail_bf16_vs_parent": report}))
     same = all(report[f"tiles_{t}"]["bit_equal"] for t in (8, 1)) and all(others.values())
+    same = same and all(
+        row["bit_equal"] and row["repeatable"]
+        for entry in report["layouts"].values() for name, row in entry.items()
+        if name in ("tiles_8", "tiles_1", "ragged")
+    )
     return 0 if same else 1
 
 
