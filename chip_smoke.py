@@ -1050,7 +1050,7 @@ def phase_tohr_cases(torch) -> None:
 
 
 class _StageLog(logging.Handler):
-    """Collects the worker's ``stage timings: name=secondss`` debug lines."""
+    """Collects the CostGrow worker's ``stage timings: name=secondss`` debug lines."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
@@ -1062,6 +1062,18 @@ class _StageLog(logging.Handler):
             for item in msg.split(":", 1)[1].split():
                 key, _, value = item.partition("=")
                 self.stages[key] = float(value.rstrip("s"))
+
+
+def run_stages(diag: dict) -> dict[str, float]:
+    """Seconds of each span directly under ``worker.run`` in a ``tohr``
+    run's record (``scene_timings["trace"]``), summed by name."""
+    spans = diag["scene_timings"]["trace"]["spans"]
+    root = next(i for i, s in enumerate(spans) if s[0] == "worker.run")
+    stages: dict[str, float] = {}
+    for name, parent, t0, t1 in spans:
+        if parent == root and t1:
+            stages[name] = stages.get(name, 0.0) + (t1 - t0) * 1e-9
+    return stages
 
 
 def scene_inputs(
@@ -1242,11 +1254,9 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
     from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts, route_counts
     from floodsr_tpu_torch.tohr import tohr
 
-    stage_log = _StageLog()
     logger = logging.getLogger("chip_smoke.scene")
-    logger.setLevel(logging.DEBUG)
     logger.propagate = False
-    logger.addHandler(stage_log)
+    logger.addHandler(logging.NullHandler())
     lr = size // 16
     with tempfile.TemporaryDirectory(prefix="chip-smoke-scene-") as tmp:
         dem_fp, depth_fp = scene_inputs(Path(tmp), seed, size)
@@ -1268,13 +1278,13 @@ def phase_scene(torch, seed: int, size: int, with_profile: bool = False) -> dict
         counts = launch_counts()
         routes = route_counts()
         peak = torch.cuda.max_memory_allocated()
-        stages = dict(stage_log.stages)
+        stages = run_stages(diag)
         pred, _, _ = read_raster(out_fp)
         prof = device_profile(torch, lambda: tohr(**kw)) if with_profile else None
     assert pred.shape == (size, size), pred.shape
     assert np.isfinite(pred).all() and pred.min() >= 0.0 and pred.max() <= 5.0
     tiles = int(diag["preprocess"]["tile_cache_size"])
-    timings = diag["scene_timings"]
+    timings = {k: v for k, v in diag["scene_timings"].items() if k != "trace"}
     log(
         f"[scene] {size}x{size} HR from {lr}x{lr} LR, {tiles} tiles (feather): "
         f"warm-up run {warm_s:.3f} s, timed run {e2e_s:.3f} s end to end, "

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from floodsr_tpu_torch import tracing
 from floodsr_tpu_torch.device import resolve_device, set_strict_f32
 from floodsr_tpu_torch.engine.base import EngineBase, ModelIOContract
 from floodsr_tpu_torch.engine.scene import (
@@ -150,6 +151,7 @@ class EngineTorch(EngineBase):
         # the same forward on each distinct device of the mesh (the model's
         # copy there); {self.device: self._forward} without a mesh
         self._replicas: dict[torch.device, Any] = {}
+        # the last scene's scene_timings, read from its spans (run_scene)
         self.last_scene_timings: dict[str, float] = {}
         # The keyword arguments of the last run_scene's geometry (crop_shape,
         # stride_hr, overlap_hr, max_depth, dem_pct_clip, tile_lr): what
@@ -446,6 +448,13 @@ class EngineTorch(EngineBase):
         ``stride_hr``, then finishes (:meth:`_finish_scene`).
         ``row_sink(band)`` receives the finished rows top to bottom.
 
+        Each stage is a span of the open request (:mod:`~floodsr_tpu_torch.tracing`):
+        ``engine.plan``, ``engine.h2d``, ``engine.exec`` (the executor's call,
+        closed by a synchronize) and ``engine.finish``; on a CUDA device an
+        event pair times the stream from the upload to the executor's return
+        (counter ``device_s``). ``last_scene_timings`` is read from those
+        spans.
+
         Returns the finished meter-domain scene and per-tile DEM stats
         (``p_clip``/``dem_min``/``dem_max``) in the grid's row-major order.
         """
@@ -472,28 +481,34 @@ class EngineTorch(EngineBase):
                 tile_lr=tile_lr,
             )
         scale = self.scene_config(tile_lr).scale
-        executor, idx, content, n = self.scene_executor(**self.last_scene_args)
-
-        t0 = time.perf_counter()
-        depth_dev = self._put_padded(depth_raw, (content[0] // scale, content[1] // scale))
-        dem_dev = self._put_padded(dem_raw, content)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        out, stats = executor(depth_dev, dem_dev, idx)
-        _sync(self.device)
-        t2 = time.perf_counter()
-
-        stats_np = stats.cpu().numpy()
-        out_np = self._finish_scene(
-            out,
-            crop_shape=(crop_h, crop_w),
-            max_depth=float(max_depth),
-            post_resample=post_resample,
-            low_depth_mask_m=float(low_depth_mask_m),
-            row_sink=row_sink,
-        )
-        t3 = time.perf_counter()
-        self._record_timings(t0, t1, t2, t3, n, content)
+        clock = tracing.StreamClock(self.device)
+        with tracing.request() as trace:
+            with tracing.span("engine.plan"):
+                executor, idx, content, n = self.scene_executor(**self.last_scene_args)
+            with tracing.span("engine.h2d") as h2d:
+                e0 = clock.mark()
+                depth_dev = self._put_padded(
+                    depth_raw, (content[0] // scale, content[1] // scale)
+                )
+                dem_dev = self._put_padded(dem_raw, content)
+                _sync(self.device)
+            with tracing.span("engine.exec") as ex:
+                out, stats = executor(depth_dev, dem_dev, idx)
+                e1 = clock.mark()
+                _sync(self.device)
+            with tracing.span("engine.finish") as fin:
+                with tracing.span("finish.stats"):
+                    stats_np = stats.cpu().numpy()
+                out_np = self._finish_scene(
+                    out,
+                    crop_shape=(crop_h, crop_w),
+                    max_depth=float(max_depth),
+                    post_resample=post_resample,
+                    low_depth_mask_m=float(low_depth_mask_m),
+                    row_sink=row_sink,
+                )
+            ex.add("device_s", clock.seconds(e0, e1, h2d, ex))
+            self.last_scene_timings = self._scene_timings(trace, h2d, ex, fin, n)
         return out_np, {
             "p_clip": stats_np[:, 0],
             "dem_min": stats_np[:, 1],
@@ -546,20 +561,23 @@ class EngineTorch(EngineBase):
         )
         return executor, scene_indices(grid), content, len(grid["y0"])
 
-    def _record_timings(self, t0, t1, t2, t3, n: int, scene: tuple[int, int]) -> None:
-        self.log.debug(
-            f"run_scene timings: h2d={t1 - t0:.3f}s exec={t2 - t1:.3f}s "
-            f"d2h+post={t3 - t2:.3f}s tiles={n} scene={scene}"
-        )
-        # Diagnostic breakdown of the last scene (read by the worker into its
-        # diagnostics): upload, device execution (after a synchronize), and
-        # the download + host finish.
-        self.last_scene_timings = {
-            "h2d_s": t1 - t0,
-            "exec_s": t2 - t1,
-            "finish_s": t3 - t2,
+    @staticmethod
+    def _scene_timings(trace, h2d, ex, fin, n: int) -> dict:
+        """The scene's ``scene_timings`` from its spans: upload, the executor
+        (closed by a synchronize), the finish and its parts."""
+        seconds, counters = trace.totals(fin)
+        return {
+            "h2d_s": h2d.seconds,
+            "exec_s": ex.seconds,
+            "finish_s": fin.seconds,
             "tiles": n,
-            **self._finish_timings,
+            "device_post_s": seconds.get("finish.device", 0.0),
+            "d2h_wait_s": seconds.get("finish.d2h", 0.0),
+            "d2h_bytes": int(counters.get("d2h_bytes", 0)),
+            "host_dequant_s": seconds.get("finish.dequant", 0.0),
+            "host_resample_s": seconds.get("finish.resample", 0.0),
+            "host_sink_s": seconds.get("finish.sink", 0.0),
+            "host_post_s": seconds.get("finish.host", 0.0),
         }
 
     def banded_scene_executor(
@@ -670,60 +688,65 @@ class EngineTorch(EngineBase):
         grid = build_window_grid(*self.content_shape(eff, tile_lr), tile, int(stride_hr))
         n = len(grid["y0"])
 
-        t0 = time.perf_counter()
-        # Pad on the scene's device in the original orientation, then
-        # transpose for column banding.
-        lr_shape = (bucket[0] // scale, bucket[1] // scale)
-        if transposed:
-            depth_dev = self._put_padded(depth_raw, lr_shape[::-1]).t().contiguous()
-            dem_dev = self._put_padded(dem_raw, bucket[::-1]).t().contiguous()
-        else:
-            depth_dev = self._put_padded(depth_raw, lr_shape)
-            dem_dev = self._put_padded(dem_raw, bucket)
-        banded = pack_band_indices(
-            grid, n_bands=n_bands, band=bucket[0] // n_bands, chunk=chunk, cap=cap
-        )
-        grid_slot = banded.pop("grid_slot")
-        banded["depth"], banded["dem"] = band_inputs(
-            depth_dev, dem_dev, n_bands=n_bands, tile=tile, scale=scale,
-            devices=band_devices(self.mesh, self.batch_axis),
-        )
-        del depth_dev, dem_dev
-        _sync(self.device)
-        t1 = time.perf_counter()
-        bands, stats = run(banded)
-        # Merge the bands on the scene's device.
-        out = gather_to(bands, self.device)
-        if transposed:
-            out = out.t().contiguous()
-        stats_np = np.stack([st.cpu().numpy() for st in stats])
-        _sync(self.device)
-        t2 = time.perf_counter()
+        clock = tracing.StreamClock(self.device)
+        with tracing.request() as trace:
+            with tracing.span("engine.h2d") as h2d:
+                e0 = clock.mark()
+                # Pad on the scene's device in the original orientation, then
+                # transpose for column banding.
+                lr_shape = (bucket[0] // scale, bucket[1] // scale)
+                if transposed:
+                    depth_dev = self._put_padded(depth_raw, lr_shape[::-1]).t().contiguous()
+                    dem_dev = self._put_padded(dem_raw, bucket[::-1]).t().contiguous()
+                else:
+                    depth_dev = self._put_padded(depth_raw, lr_shape)
+                    dem_dev = self._put_padded(dem_raw, bucket)
+                banded = pack_band_indices(
+                    grid, n_bands=n_bands, band=bucket[0] // n_bands, chunk=chunk, cap=cap
+                )
+                grid_slot = banded.pop("grid_slot")
+                banded["depth"], banded["dem"] = band_inputs(
+                    depth_dev, dem_dev, n_bands=n_bands, tile=tile, scale=scale,
+                    devices=band_devices(self.mesh, self.batch_axis),
+                )
+                del depth_dev, dem_dev
+                _sync(self.device)
+            with tracing.span("engine.exec") as ex:
+                bands, stats = run(banded)
+                # Merge the bands on the scene's device.
+                out = gather_to(bands, self.device)
+                if transposed:
+                    out = out.t().contiguous()
+                e1 = clock.mark()
+                stats_np = np.stack([st.cpu().numpy() for st in stats])
+                _sync(self.device)
 
-        # Reassemble per-tile stats into grid order via the slot map.
-        grid_stats = np.zeros((n, 3), np.float32)
-        for d in range(n_bands):
-            sel = grid_slot[d]
-            live = sel >= 0
-            grid_stats[sel[live]] = stats_np[d][live]
-        if transposed:
-            # The transposed grid enumerates tiles in TRANSPOSED row-major
-            # order; re-sort into the ORIGINAL orientation's row-major order
-            # (primary: original y = transposed x0, secondary: original
-            # x = transposed y0).
-            order = np.lexsort((np.asarray(grid["y0"]), np.asarray(grid["x0"])))
-            grid_stats = grid_stats[order]
+            with tracing.span("engine.finish") as fin:
+                with tracing.span("finish.stats"):
+                    # Reassemble per-tile stats into grid order via the slot map.
+                    grid_stats = np.zeros((n, 3), np.float32)
+                    for d in range(n_bands):
+                        sel = grid_slot[d]
+                        live = sel >= 0
+                        grid_stats[sel[live]] = stats_np[d][live]
+                    if transposed:
+                        # The transposed grid enumerates tiles in TRANSPOSED row-major
+                        # order; re-sort into the ORIGINAL orientation's row-major order
+                        # (primary: original y = transposed x0, secondary: original
+                        # x = transposed y0).
+                        order = np.lexsort((np.asarray(grid["y0"]), np.asarray(grid["x0"])))
+                        grid_stats = grid_stats[order]
 
-        out_np = self._finish_scene(
-            out,
-            crop_shape=(crop_h, crop_w),
-            max_depth=float(max_depth),
-            post_resample=post_resample,
-            low_depth_mask_m=float(low_depth_mask_m),
-            row_sink=row_sink,
-        )
-        t3 = time.perf_counter()
-        self._record_timings(t0, t1, t2, t3, n, bucket)
+                out_np = self._finish_scene(
+                    out,
+                    crop_shape=(crop_h, crop_w),
+                    max_depth=float(max_depth),
+                    post_resample=post_resample,
+                    low_depth_mask_m=float(low_depth_mask_m),
+                    row_sink=row_sink,
+                )
+            ex.add("device_s", clock.seconds(e0, e1, h2d, ex))
+            self.last_scene_timings = self._scene_timings(trace, h2d, ex, fin, n)
         return out_np, {
             "p_clip": grid_stats[:, 0],
             "dem_min": grid_stats[:, 1],
@@ -762,84 +785,78 @@ class EngineTorch(EngineBase):
         else:
             dequant = None
 
-        t0 = time.perf_counter()
-        device_masked = False
-        host_resample = None
-        if post_resample is not None:
-            dst_shape, src_t, dst_t = post_resample
-            dst_shape = tuple(int(v) for v in dst_shape)
-            rectilinear = src_t.is_rectilinear() and dst_t.is_rectilinear()
-            # (under a mesh the host resamples, as in the JAX package)
-            if (
-                rectilinear
-                and os.environ.get("FLOODSR_DEVICE_POSTPROC", "1") == "1"
-                and self.mesh is None
-            ):
-                # Device-side postprocess: the index and weight plan is
-                # _axis_interp_indices, the same the host resampler uses, so
-                # values match to f32 lerp rounding plus one more quantization
-                # round trip on the uint16 transfer (max_depth/65535/sqrt(12)
-                # rmse). Afterwards the host must not clip and mask again: a
-                # pixel the device kept could be zeroed by rounding near the
-                # threshold.
-                out = self._postproc_on_device(
-                    out, (crop_h, crop_w), dst_shape, src_t, dst_t,
-                    max_depth, low_depth_mask_m,
-                )
-                crop_h, crop_w = dst_shape
-                device_masked = True
-            else:
-                host_resample = (rectilinear, dst_shape, src_t, dst_t)
-        band = out[:crop_h, :crop_w]
-        if transfer12:
-            band = self._pack12(band)
-        _sync(self.device)
-        t_dev = time.perf_counter()
-        host = band.cpu().numpy()
-        t1 = time.perf_counter()
-        if transfer12:
-            scene = self._unpack12(host, crop_w, dequant)
-        elif dequant is not None:
-            scene = host.astype(np.float32)
-            scene *= dequant  # in place: no second temporary
-        else:
-            scene = np.asarray(host, np.float32)
-        t2 = time.perf_counter()
+        clock = tracing.StreamClock(self.device)
+        with tracing.span("finish.device") as dev:
+            f0 = clock.mark()
+            device_masked = False
+            host_resample = None
+            if post_resample is not None:
+                dst_shape, src_t, dst_t = post_resample
+                dst_shape = tuple(int(v) for v in dst_shape)
+                rectilinear = src_t.is_rectilinear() and dst_t.is_rectilinear()
+                # (under a mesh the host resamples, as in the JAX package)
+                if (
+                    rectilinear
+                    and os.environ.get("FLOODSR_DEVICE_POSTPROC", "1") == "1"
+                    and self.mesh is None
+                ):
+                    # Device-side postprocess: the index and weight plan is
+                    # _axis_interp_indices, the same the host resampler uses, so
+                    # values match to f32 lerp rounding plus one more quantization
+                    # round trip on the uint16 transfer (max_depth/65535/sqrt(12)
+                    # rmse). Afterwards the host must not clip and mask again: a
+                    # pixel the device kept could be zeroed by rounding near the
+                    # threshold.
+                    out = self._postproc_on_device(
+                        out, (crop_h, crop_w), dst_shape, src_t, dst_t,
+                        max_depth, low_depth_mask_m,
+                    )
+                    crop_h, crop_w = dst_shape
+                    device_masked = True
+                else:
+                    host_resample = (rectilinear, dst_shape, src_t, dst_t)
+            band = out[:crop_h, :crop_w]
+            if transfer12:
+                band = self._pack12(band)
+            _sync(self.device)
+        with tracing.span("finish.d2h") as d2h:
+            host = band.cpu().numpy()
+            f1 = clock.mark()
+            d2h.add("d2h_bytes", int(host.nbytes))
+        with tracing.span("finish.host"):
+            with tracing.span("finish.dequant"):
+                if transfer12:
+                    scene = self._unpack12(host, crop_w, dequant)
+                elif dequant is not None:
+                    scene = host.astype(np.float32)
+                    scene *= dequant  # in place: no second temporary
+                else:
+                    scene = np.asarray(host, np.float32)
 
-        if host_resample is not None:
-            rectilinear, dst_shape, src_t, dst_t = host_resample
-            if rectilinear:
-                resampler = StreamingSeparableResampler(
-                    (crop_h, crop_w), src_t, dst_shape, dst_t
-                )
-                _, scene = resampler.feed(scene)
-                assert resampler.complete, "separable resample did not cover all rows"
-            else:
-                scene = reproject_bilinear(scene, src_t, dst_shape, dst_t)
-        t3 = time.perf_counter()
+            with tracing.span("finish.resample"):
+                if host_resample is not None:
+                    rectilinear, dst_shape, src_t, dst_t = host_resample
+                    if rectilinear:
+                        resampler = StreamingSeparableResampler(
+                            (crop_h, crop_w), src_t, dst_shape, dst_t
+                        )
+                        _, scene = resampler.feed(scene)
+                        assert resampler.complete, "separable resample did not cover all rows"
+                    else:
+                        scene = reproject_bilinear(scene, src_t, dst_shape, dst_t)
 
-        if device_masked:
-            final = np.asarray(scene, np.float32)
-        else:
-            scene = np.clip(scene, 0.0, max_depth)
-            final = np.where(scene < low_depth_mask_m, 0.0, scene).astype(np.float32)
-        sink_s = 0.0
-        if row_sink is not None:
-            band_rows = 512
-            for r in range(0, final.shape[0], band_rows):
-                ts = time.perf_counter()
-                row_sink(final[r : r + band_rows])
-                sink_s += time.perf_counter() - ts
-        t4 = time.perf_counter()
-        self._finish_timings = {
-            "device_post_s": t_dev - t0,
-            "d2h_wait_s": t1 - t_dev,
-            "d2h_bytes": int(host.nbytes),
-            "host_dequant_s": t2 - t1,
-            "host_resample_s": t3 - t2,
-            "host_sink_s": sink_s,
-            "host_post_s": t4 - t1,
-        }
+            if device_masked:
+                final = np.asarray(scene, np.float32)
+            else:
+                scene = np.clip(scene, 0.0, max_depth)
+                final = np.where(scene < low_depth_mask_m, 0.0, scene).astype(np.float32)
+            with tracing.span("finish.sink"):
+                if row_sink is not None:
+                    band_rows = 512
+                    for r in range(0, final.shape[0], band_rows):
+                        row_sink(final[r : r + band_rows])
+        # The stream passed f1 before the download returned.
+        d2h.add("device_s", clock.seconds(f0, f1, dev, d2h))
         return final
 
     @staticmethod

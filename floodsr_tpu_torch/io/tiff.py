@@ -25,6 +25,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from floodsr_tpu_torch import tracing
 from floodsr_tpu_torch.io import native as _native
 
 
@@ -1145,23 +1146,29 @@ class StripStreamWriter:
         n_strips = -(-rows_take // self._rps)
         src = np.ascontiguousarray(self._pending[:rows_take])
         self._pending = self._pending[rows_take:]
-        blob, counts = _native.lzw_encode_strips(
-            src.reshape(-1).view(np.uint8),
-            strip_bytes=self._rps * self._width * self._dtype.itemsize,
-            n_strips=n_strips,
-            cols=self._width,
-            itemsize=self._dtype.itemsize,
-            predictor=self._predictor,
-        )
+        with tracing.span("sink.encode"):
+            blob, counts = _native.lzw_encode_strips(
+                src.reshape(-1).view(np.uint8),
+                strip_bytes=self._rps * self._width * self._dtype.itemsize,
+                n_strips=n_strips,
+                cols=self._width,
+                itemsize=self._dtype.itemsize,
+                predictor=self._predictor,
+            )
         pos = 0
-        for cnt in counts:
-            self._offsets.append(self._handle.tell())
-            self._counts.append(cnt)
-            self._handle.write(blob[pos : pos + cnt])
-            if cnt % 2:
-                self._handle.write(b"\0")
-            pos += cnt
+        with tracing.span("sink.write"):
+            for cnt in counts:
+                self._write_strip(blob[pos : pos + cnt])
+                pos += cnt
         return True
+
+    def _write_strip(self, blob) -> None:
+        """Append one encoded strip (and a pad byte after an odd length)."""
+        self._offsets.append(self._handle.tell())
+        self._counts.append(len(blob))
+        self._handle.write(blob)
+        if len(blob) % 2:
+            self._handle.write(b"\0")
 
     def write_rows(self, band: np.ndarray) -> None:
         band = np.ascontiguousarray(band, self._dtype)
@@ -1174,20 +1181,20 @@ class StripStreamWriter:
         flush_all = self._rows_done == self._height
         if self._flush_strips_native(flush_all):
             return
-        while self._pending.shape[0] >= self._rps or (
-            flush_all and self._pending.shape[0] > 0
-        ):
-            chunk = self._pending[: self._rps]
-            self._pending = self._pending[self._rps :]
-            enc = _apply_predictor_encode(chunk[:, :, None], self._predictor)
-            blob = _compress_chunk(
-                enc.tobytes(), self._compression, self._width * self._dtype.itemsize
-            )
-            self._offsets.append(self._handle.tell())
-            self._counts.append(len(blob))
-            self._handle.write(blob)
-            if len(blob) % 2:
-                self._handle.write(b"\0")
+        blobs = []
+        with tracing.span("sink.encode"):
+            while self._pending.shape[0] >= self._rps or (
+                flush_all and self._pending.shape[0] > 0
+            ):
+                chunk = self._pending[: self._rps]
+                self._pending = self._pending[self._rps :]
+                enc = _apply_predictor_encode(chunk[:, :, None], self._predictor)
+                blobs.append(_compress_chunk(
+                    enc.tobytes(), self._compression, self._width * self._dtype.itemsize
+                ))
+        with tracing.span("sink.write"):
+            for blob in blobs:
+                self._write_strip(blob)
 
     def close(self) -> None:
         assert self._rows_done == self._height, (

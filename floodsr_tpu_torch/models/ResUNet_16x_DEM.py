@@ -24,10 +24,10 @@ scene's DEM in flight while the current scene computes.
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import tempfile
 import threading
-import time
 from collections import OrderedDict
 from pathlib import Path
 from typing import Any
@@ -35,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from floodsr_tpu_torch import tracing
 from floodsr_tpu_torch.device import resolve_device
 from floodsr_tpu_torch.engine import EngineTorch
 from floodsr_tpu_torch.io.geotiff import pixel_size, raster_bounds
@@ -212,7 +213,8 @@ class ModelWorker(Model):
                 if self.device.type == "cuda":
                     # A new thread starts on device 0.
                     torch.cuda.set_device(self.device)
-                value = self._decode_and_upload_dem(path, stream=self._prefetch_stream)
+                with tracing.span("prefetch.dem"):
+                    value = self._decode_and_upload_dem(path, stream=self._prefetch_stream)
                 self._dem_cache_put(key, value)
                 with self._dem_cache_lock:
                     self.dem_counts["decoded_by_prefetch"] += 1
@@ -225,8 +227,11 @@ class ModelWorker(Model):
         with self._dem_cache_lock:
             if key in self._dem_device_cache or key in self._dem_prefetch:
                 return None
+            # In a copy of the caller's context: its spans join the request
+            # that started it.
             t = threading.Thread(
-                target=work, name="floodsr-dem-prefetch", daemon=True
+                target=contextvars.copy_context().run, args=(work,),
+                name="floodsr-dem-prefetch", daemon=True,
             )
             self._dem_prefetch[key] = t
         t.start()
@@ -455,326 +460,331 @@ class ModelWorker(Model):
         reference's planned WSE feature, reference ``PLAN.md``). ``buildings_fp``
         (GeoJSON footprints) zeroes super-resolved depths inside buildings
         (the reference's planned building-blocking feature, its ADR-0016).
+
+        The run is span ``worker.run`` (``runtime_s``) of the request open in
+        this context, the service's, or of a request of its own, whose record
+        it then returns as ``scene_timings["trace"]``
+        (:meth:`~floodsr_tpu_torch.tracing.Trace.export`).
         """
-        start = time.perf_counter()
-        log = self.log
-        assert self.engine is not None, "worker must be used under context management"
+        opened = tracing.current() is None
+        with tracing.request() as trace, tracing.span("worker.run") as root:
+            log = self.log
+            assert self.engine is not None, "worker must be used under context management"
 
-        depth_lr_path = Path(depth_lr_fp).expanduser().resolve()
-        dem_hr_path = Path(dem_hr_fp).expanduser().resolve()
-        out_path = Path(output_fp).expanduser().resolve()
-        assert depth_lr_path.exists(), f"low-res depth raster does not exist: {depth_lr_path}"
-        assert dem_hr_path.exists(), f"DEM raster does not exist: {dem_hr_path}"
-        window_method = (window_method or "feather").strip().lower()
-        assert window_method in {"hard", "feather"}, (
-            f"unsupported window_method={window_method}"
-        )
-        input_kind = (input_kind or "depth").strip().lower()
-        assert input_kind in {"depth", "wse"}, (
-            f"unsupported input_kind={input_kind}"
-        )
-        output_compress = (output_compress or "lzw").strip().lower()
-        assert output_compress in {"lzw", "zstd", "deflate", "packbits", "none"}, (
-            f"unsupported output_compress={output_compress}"
-        )
-
-        log.info(
-            f"starting tohr inference with model_version={self.model_version}\n"
-            f"model\n    {self.model_fp}\ndepth_lr\n    {depth_lr_path}\n"
-            f"dem_hr\n    {dem_hr_path}\noutput\n    {out_path}"
-        )
-
-        t_read0 = time.perf_counter()
-        # Terrain is static across forecast runs: keep recently uploaded DEMs
-        # resident on the device, keyed by file identity (path, mtime, size).
-        # A hit skips both the GeoTIFF decode and the upload. A prefetch
-        # started by run_many/prefetch_dem is joined rather than duplicated.
-        dem_cache_key = self._dem_cache_key(dem_hr_path)
-        with self._dem_cache_lock:
-            inflight = self._dem_prefetch.get(dem_cache_key) if dem_cache_key else None
-        if inflight is not None:
-            inflight.join()
-        cached = self._dem_cache_get(dem_cache_key)
-        dem_resident = cached is not None
-        if dem_resident:
-            dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = cached
-            if dem_hr_dev.is_cuda:
-                # The tensor may have been allocated on the prefetch stream:
-                # tell the allocator that this stream reads it, so an evicted
-                # DEM's memory is not handed out while a scene still uses it.
-                dem_hr_dev.record_stream(torch.cuda.current_stream(dem_hr_dev.device))
-            log.debug("DEM device cache hit; skipping decode + upload")
-        else:
-            # Decode + upload the DEM first (uint16 fixed-point encoded when
-            # large, halving the bytes on the link — ops/transfer.py).
-            dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = (
-                self._decode_and_upload_dem(dem_hr_path)
-            )
-            if dem_cache_key is not None:
-                self._dem_cache_put(
-                    dem_cache_key,
-                    (dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile),
+            with tracing.span("worker.inputs"):
+                depth_lr_path = Path(depth_lr_fp).expanduser().resolve()
+                dem_hr_path = Path(dem_hr_fp).expanduser().resolve()
+                out_path = Path(output_fp).expanduser().resolve()
+                assert depth_lr_path.exists(), f"low-res depth raster does not exist: {depth_lr_path}"
+                assert dem_hr_path.exists(), f"DEM raster does not exist: {dem_hr_path}"
+                window_method = (window_method or "feather").strip().lower()
+                assert window_method in {"hard", "feather"}, (
+                    f"unsupported window_method={window_method}"
                 )
-        with self._dem_cache_lock:
-            self.dem_counts["resident" if dem_resident else "decoded_in_run"] += 1
-            dem_counts = dict(self.dem_counts)
-        depth_lr_raw, depth_lr_raw_nodata, depth_lr_raw_profile = _read_single_band_raster(depth_lr_path)
-        read_s = time.perf_counter() - t_read0
-        log.debug(f"stage timings: read={read_s:.3f}s")
-        depth_lr_bounds = raster_bounds(depth_lr_raw_profile)
-        dem_raw_shape = (dem_hr_raw_profile["height"], dem_hr_raw_profile["width"])
-        log.info(
-            "raw inputs\n"
-            f"  depth_lr shape={depth_lr_raw.shape} res={pixel_size(depth_lr_raw_profile)} m/pix\n"
-            f"  dem_hr shape={dem_raw_shape} res={pixel_size(dem_hr_raw_profile)} m/pix"
-        )
-
-        preprocess_cfg = resolve_preprocess_config(
-            self.model_fp, max_depth=max_depth, dem_pct_clip=dem_pct_clip, logger=log
-        )
-        assert self.engine.contract is not None, "engine contract must be available"
-        contract_scale = int(self.engine.contract.scale)
-        contract_lr_tile = int(self.engine.contract.depth_lr_hwc[0])
-        contract_hr_tile = int(self.engine.contract.dem_hr_hwc[0])
-
-        model_scale = (
-            int(preprocess_cfg["scale"])
-            if isinstance(preprocess_cfg.get("scale"), (int, float))
-            else contract_scale
-        )
-        if model_scale != contract_scale:
-            log.warning(f"using contract scale {contract_scale} over configured scale {model_scale}")
-            model_scale = contract_scale
-
-        model_lr_tile = (
-            int(preprocess_cfg["lr_tile"])
-            if isinstance(preprocess_cfg.get("lr_tile"), (int, float))
-            else contract_lr_tile
-        )
-        if model_lr_tile != contract_lr_tile:
-            log.warning(
-                f"model config LR tile {model_lr_tile} overrides contract tile {contract_lr_tile}; "
-                "using contract tile for strict model shape checks."
-            )
-            model_lr_tile = contract_lr_tile
-
-        tile_override = False
-        if tile_size is not None:
-            tile_size = int(tile_size)
-            if tile_size != contract_lr_tile:
-                # Fully-convolutional window override: the ResUNet applies the SAME trained weights at any LR window
-                # divisible by 2^levels (the reference's fixed-shape tf2onnx
-                # graph cannot). scene_config raises a clear error for
-                # graph-executor models or non-divisible sizes.
-                self.engine.scene_config(tile_size)
-                tile_override = True
-                log.warning(
-                    f"tile_size={tile_size} differs from the trained LR tile "
-                    f"({contract_lr_tile}): per-window DEM normalization "
-                    "follows the window, which is OFF the training "
-                    "distribution, and quality degrades at non-trained "
-                    "window sizes. Use the "
-                    "trained tile unless you have re-validated quality."
+                input_kind = (input_kind or "depth").strip().lower()
+                assert input_kind in {"depth", "wse"}, (
+                    f"unsupported input_kind={input_kind}"
                 )
-            model_lr_tile = tile_size
+                output_compress = (output_compress or "lzw").strip().lower()
+                assert output_compress in {"lzw", "zstd", "deflate", "packbits", "none"}, (
+                    f"unsupported output_compress={output_compress}"
+                )
 
-        if not tile_override and model_lr_tile * model_scale != contract_hr_tile:
-            raise AssertionError(
-                f"model tile mismatch: LR tile {model_lr_tile} x scale {model_scale} "
-                f"!= contract HR tile {contract_hr_tile}"
-            )
-
-        # Reference default overlap = LR tile // 4 (follows the RUN tile so a
-        # window-size override keeps the reference's overlap proportion).
-        overlap_lr = int(tile_overlap) if tile_overlap is not None else model_lr_tile // 4
-        if overlap_lr < 0:
-            raise AssertionError(f"tile_overlap must be >= 0; got {overlap_lr}")
-
-        with tempfile.TemporaryDirectory(prefix="floodsr-prep-") as prepped_dir:
-            t_prep0 = time.perf_counter()
-            prepped = write_prepared_rasters(
-                depth_lr_fp=depth_lr_path,
-                dem_hr_fp=dem_hr_path,
-                scale=model_scale,
-                out_dir=prepped_dir,
-                logger=log,
-                # Hot path: align in memory (no temp writes) and keep the
-                # warped DEM on device for the fused scene executor.
-                write_files=False,
-                device_dem=True,
-                input_kind=input_kind,
-                device=self.device,
-                preread={
-                    "depth": depth_lr_raw,
-                    "depth_nodata": depth_lr_raw_nodata,
-                    "depth_profile": depth_lr_raw_profile,
-                    "dem": dem_hr_dev,
-                    "dem_nodata": dem_hr_raw_nodata,
-                    "dem_profile": dem_hr_raw_profile,
-                },
-            )
-            log.debug(f"stage timings: prepare={time.perf_counter() - t_prep0:.3f}s")
             log.info(
-                "preprocessing complete\n"
-                f"  scale={model_scale} (HR/LR ratio)\n"
-                f"  aligned depth shape={prepped['depth_lr_shape']} resampled={prepped['resampled']}\n"
-                f"  aligned dem shape={prepped['dem_hr_shape']} raw_dem_shape={prepped['dem_raw_shape']}\n"
-                f"  max_depth={float(preprocess_cfg['max_depth'])} "
-                f"dem_pct_clip={float(preprocess_cfg['dem_pct_clip'])}"
+                f"starting tohr inference with model_version={self.model_version}\n"
+                f"model\n    {self.model_fp}\ndepth_lr\n    {depth_lr_path}\n"
+                f"dem_hr\n    {dem_hr_path}\noutput\n    {out_path}"
             )
 
-            model_space_shape = tuple(prepped["dem_hr_shape"])
-            post_resampled = tuple(prepped["dem_raw_shape"]) != model_space_shape
-            post_spec = None
-            if post_resampled:
-                log.info(
-                    f"post-resampling model output from {model_space_shape} "
-                    f"to {tuple(prepped['dem_raw_shape'])} on raw DEM grid "
-                    "with bilinear interpolation (on the host)."
-                )
-                post_spec = (
-                    tuple(prepped["dem_raw_shape"]),
-                    prepped["dem_profile"]["transform"],
-                    prepped["dem_raw_profile"]["transform"],
-                )
-
-            # Streaming write: the output GeoTIFF's strips are encoded and
-            # written per row band WHILE later bands are still in flight from
-            # the device (run_scene's banded D2H → open_raster_stream).
-            from floodsr_tpu_torch.io.geotiff import open_raster_stream
-
-            output_profile = dict(prepped["dem_raw_profile"])
-            output_profile.update(dtype="float32", count=1)
-            # The output compression is a fixed write profile (reference
-            # default: LZW), never inherited from the input DEM's tags.
-            output_profile["compress"] = (
-                None if output_compress == "none" else output_compress.upper()
-            )
-            output_profile.pop("predictor", None)
-
-            # Building blocking (reference's planned feature, its ADR-0016):
-            # zero depths inside footprints as the rows stream to disk, and
-            # apply the same mask to the in-memory prediction below. Loaded
-            # BEFORE the output stream opens: a bad buildings file must
-            # fail cleanly, not truncate/corrupt the requested output path.
-            building_mask = None
-            blocked_wet = {"cells": 0}
-            if buildings_fp is not None:
-                from floodsr_tpu_torch.features import building_mask_for_grid
-
-                building_mask = building_mask_for_grid(
-                    buildings_fp,
-                    output_profile["transform"],
-                    tuple(prepped["dem_raw_shape"]),
-                    crs=str(output_profile["crs"]),
-                    logger_=log,
-                )
-
-            stream_writer = open_raster_stream(out_path, output_profile)
-            row_sink = stream_writer.write_rows
-            if building_mask is not None:
-                row_cursor = {"row": 0}
-
-                def row_sink(band, _w=stream_writer.write_rows):
-                    r0 = row_cursor["row"]
-                    m = building_mask[r0 : r0 + band.shape[0]]
-                    blocked_wet["cells"] += int(((band > 0) & m).sum())
-                    row_cursor["row"] = r0 + band.shape[0]
-                    _w(np.where(m, 0.0, band).astype(band.dtype, copy=False))
-
-            t_tiled0 = time.perf_counter()
-            try:
-                prediction_out_m, tile_cache_size, tile_dem_stats = (
-                    self._run_tiled_model_on_prepared(
-                        depth_lr_raw=prepped["depth_lr"],
-                        dem_hr_raw=prepped["dem_hr"],
-                        depth_lr_profile=prepped["depth_lr_profile"],
-                        dem_hr_profile=prepped["dem_profile"],
-                        preprocess_cfg=preprocess_cfg,
-                        model_lr_tile=model_lr_tile,
-                        model_scale=model_scale,
-                        # The RUN tile (== contract tile unless overridden).
-                        contract_hr_tile=model_lr_tile * model_scale,
-                        window_method=window_method,
-                        overlap_lr=overlap_lr,
-                        post_resample=post_spec,
-                        row_sink=row_sink,
+            with tracing.span("read") as read:
+                # Terrain is static across forecast runs: keep recently uploaded DEMs
+                # resident on the device, keyed by file identity (path, mtime, size).
+                # A hit skips both the GeoTIFF decode and the upload. A prefetch
+                # started by run_many/prefetch_dem is joined rather than duplicated.
+                dem_cache_key = self._dem_cache_key(dem_hr_path)
+                with self._dem_cache_lock:
+                    inflight = self._dem_prefetch.get(dem_cache_key) if dem_cache_key else None
+                if inflight is not None:
+                    with tracing.span("read.dem_join"):
+                        inflight.join()
+                cached = self._dem_cache_get(dem_cache_key)
+                dem_resident = cached is not None
+                if dem_resident:
+                    dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = cached
+                    if dem_hr_dev.is_cuda:
+                        # The tensor may have been allocated on the prefetch stream:
+                        # tell the allocator that this stream reads it, so an evicted
+                        # DEM's memory is not handed out while a scene still uses it.
+                        dem_hr_dev.record_stream(torch.cuda.current_stream(dem_hr_dev.device))
+                    log.debug("DEM device cache hit; skipping decode + upload")
+                else:
+                    # Decode + upload the DEM first (uint16 fixed-point encoded when
+                    # large, halving the bytes on the link — ops/transfer.py).
+                    with tracing.span("read.dem_decode"):
+                        dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile = (
+                            self._decode_and_upload_dem(dem_hr_path)
+                        )
+                    if dem_cache_key is not None:
+                        self._dem_cache_put(
+                            dem_cache_key,
+                            (dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile),
+                        )
+                with self._dem_cache_lock:
+                    self.dem_counts["resident" if dem_resident else "decoded_in_run"] += 1
+                    dem_counts = dict(self.dem_counts)
+                with tracing.span("read.depth"):
+                    depth_lr_raw, depth_lr_raw_nodata, depth_lr_raw_profile = (
+                        _read_single_band_raster(depth_lr_path)
                     )
-                )
-                log.debug(
-                    f"stage timings: tiled_run={time.perf_counter() - t_tiled0:.3f}s"
-                )
-                assert prediction_out_m.shape == tuple(prepped["dem_raw_shape"]), (
-                    f"prediction shape {prediction_out_m.shape} must match "
-                    f"raw DEM shape {prepped['dem_raw_shape']}"
-                )
-                if building_mask is not None:
-                    # Keep the in-memory prediction identical to the streamed
-                    # (masked) file contents.
-                    prediction_out_m = np.where(
-                        building_mask, 0.0, prediction_out_m
-                    ).astype(np.float32)
+            depth_lr_bounds = raster_bounds(depth_lr_raw_profile)
+            dem_raw_shape = (dem_hr_raw_profile["height"], dem_hr_raw_profile["width"])
+            log.info(
+                "raw inputs\n"
+                f"  depth_lr shape={depth_lr_raw.shape} res={pixel_size(depth_lr_raw_profile)} m/pix\n"
+                f"  dem_hr shape={dem_raw_shape} res={pixel_size(dem_hr_raw_profile)} m/pix"
+            )
 
-                # The pipeline already clipped to [0, max_depth] and applied the
-                # low-depth mask; a cheap range guard replaces host re-work.
-                assert prediction_out_m.dtype == np.float32
-                assert float(prediction_out_m.max(initial=0.0)) <= float(
-                    preprocess_cfg["max_depth"]
-                ) + 1e-6, "postprocess failed to clip to max_depth"
+            with tracing.span("worker.config"):
+                preprocess_cfg = resolve_preprocess_config(
+                    self.model_fp, max_depth=max_depth, dem_pct_clip=dem_pct_clip, logger=log
+                )
+            assert self.engine.contract is not None, "engine contract must be available"
+            contract_scale = int(self.engine.contract.scale)
+            contract_lr_tile = int(self.engine.contract.depth_lr_hwc[0])
+            contract_hr_tile = int(self.engine.contract.dem_hr_hwc[0])
 
-                prepared_dem_bounds = raster_bounds(prepped["dem_raw_profile"])
-                assert all(
-                    np.isclose(a, b, atol=1e-6, rtol=0.0)
-                    for a, b in zip(prepared_dem_bounds, depth_lr_bounds)
-                ), (
-                    f"output profile bounds {prepared_dem_bounds} do not match "
-                    f"incoming low-res bounds {depth_lr_bounds}"
+            model_scale = (
+                int(preprocess_cfg["scale"])
+                if isinstance(preprocess_cfg.get("scale"), (int, float))
+                else contract_scale
+            )
+            if model_scale != contract_scale:
+                log.warning(f"using contract scale {contract_scale} over configured scale {model_scale}")
+                model_scale = contract_scale
+
+            model_lr_tile = (
+                int(preprocess_cfg["lr_tile"])
+                if isinstance(preprocess_cfg.get("lr_tile"), (int, float))
+                else contract_lr_tile
+            )
+            if model_lr_tile != contract_lr_tile:
+                log.warning(
+                    f"model config LR tile {model_lr_tile} overrides contract tile {contract_lr_tile}; "
+                    "using contract tile for strict model shape checks."
+                )
+                model_lr_tile = contract_lr_tile
+
+            tile_override = False
+            if tile_size is not None:
+                tile_size = int(tile_size)
+                if tile_size != contract_lr_tile:
+                    # Fully-convolutional window override: the ResUNet applies the SAME trained weights at any LR window
+                    # divisible by 2^levels (the reference's fixed-shape tf2onnx
+                    # graph cannot). scene_config raises a clear error for
+                    # graph-executor models or non-divisible sizes.
+                    self.engine.scene_config(tile_size)
+                    tile_override = True
+                    log.warning(
+                        f"tile_size={tile_size} differs from the trained LR tile "
+                        f"({contract_lr_tile}): per-window DEM normalization "
+                        "follows the window, which is OFF the training "
+                        "distribution, and quality degrades at non-trained "
+                        "window sizes. Use the "
+                        "trained tile unless you have re-validated quality."
+                    )
+                model_lr_tile = tile_size
+
+            if not tile_override and model_lr_tile * model_scale != contract_hr_tile:
+                raise AssertionError(
+                    f"model tile mismatch: LR tile {model_lr_tile} x scale {model_scale} "
+                    f"!= contract HR tile {contract_hr_tile}"
                 )
 
-                t_write0 = time.perf_counter()
-                stream_writer.close()
-                out_written_fp = Path(out_path)
-                log.debug(
-                    f"stage timings: write_tail={time.perf_counter() - t_write0:.3f}s"
-                )
-                from floodsr_tpu_torch.io.geotiff import read_raster_header
+            # Reference default overlap = LR tile // 4 (follows the RUN tile so a
+            # window-size override keeps the reference's overlap proportion).
+            overlap_lr = int(tile_overlap) if tile_overlap is not None else model_lr_tile // 4
+            if overlap_lr < 0:
+                raise AssertionError(f"tile_overlap must be >= 0; got {overlap_lr}")
 
-                written_profile = read_raster_header(out_written_fp)
-                written_shape = (
-                    int(written_profile["height"]), int(written_profile["width"])
+            with tempfile.TemporaryDirectory(prefix="floodsr-prep-") as prepped_dir:
+                with tracing.span("worker.prepare"):
+                    prepped = write_prepared_rasters(
+                        depth_lr_fp=depth_lr_path,
+                        dem_hr_fp=dem_hr_path,
+                        scale=model_scale,
+                        out_dir=prepped_dir,
+                        logger=log,
+                        # Hot path: align in memory (no temp writes) and keep the
+                        # warped DEM on device for the fused scene executor.
+                        write_files=False,
+                        device_dem=True,
+                        input_kind=input_kind,
+                        device=self.device,
+                        preread={
+                            "depth": depth_lr_raw,
+                            "depth_nodata": depth_lr_raw_nodata,
+                            "depth_profile": depth_lr_raw_profile,
+                            "dem": dem_hr_dev,
+                            "dem_nodata": dem_hr_raw_nodata,
+                            "dem_profile": dem_hr_raw_profile,
+                        },
+                    )
+                log.info(
+                    "preprocessing complete\n"
+                    f"  scale={model_scale} (HR/LR ratio)\n"
+                    f"  aligned depth shape={prepped['depth_lr_shape']} resampled={prepped['resampled']}\n"
+                    f"  aligned dem shape={prepped['dem_hr_shape']} raw_dem_shape={prepped['dem_raw_shape']}\n"
+                    f"  max_depth={float(preprocess_cfg['max_depth'])} "
+                    f"dem_pct_clip={float(preprocess_cfg['dem_pct_clip'])}"
                 )
-                assert written_shape == tuple(prepped["dem_raw_shape"]), (
-                    f"written output shape {written_shape} must match raw DEM "
-                    f"shape {prepped['dem_raw_shape']}"
+
+                model_space_shape = tuple(prepped["dem_hr_shape"])
+                post_resampled = tuple(prepped["dem_raw_shape"]) != model_space_shape
+                post_spec = None
+                if post_resampled:
+                    log.info(
+                        f"post-resampling model output from {model_space_shape} "
+                        f"to {tuple(prepped['dem_raw_shape'])} on raw DEM grid "
+                        "with bilinear interpolation (on the host)."
+                    )
+                    post_spec = (
+                        tuple(prepped["dem_raw_shape"]),
+                        prepped["dem_profile"]["transform"],
+                        prepped["dem_raw_profile"]["transform"],
+                    )
+
+                # Streaming write: the output GeoTIFF's strips are encoded and
+                # written per row band WHILE later bands are still in flight from
+                # the device (run_scene's banded D2H → open_raster_stream).
+                from floodsr_tpu_torch.io.geotiff import open_raster_stream
+
+                output_profile = dict(prepped["dem_raw_profile"])
+                output_profile.update(dtype="float32", count=1)
+                # The output compression is a fixed write profile (reference
+                # default: LZW), never inherited from the input DEM's tags.
+                output_profile["compress"] = (
+                    None if output_compress == "none" else output_compress.upper()
                 )
-                written_bounds = raster_bounds(written_profile)
-                assert all(
-                    np.isclose(a, b, atol=1e-6, rtol=0.0)
-                    for a, b in zip(written_bounds, depth_lr_bounds)
-                ), (
-                    f"written output bounds {written_bounds} must match incoming "
-                    f"low-res bounds {depth_lr_bounds}"
-                )
-            except BaseException:
-                # Cover the WHOLE produce-and-verify span (inference, range/
-                # bounds asserts, stream close, written-file checks): any
-                # failure must not leave a corrupt partial GeoTIFF at the
-                # requested output path or leak the handle.
+                output_profile.pop("predictor", None)
+
+                # Building blocking (reference's planned feature, its ADR-0016):
+                # zero depths inside footprints as the rows stream to disk, and
+                # apply the same mask to the in-memory prediction below. Loaded
+                # BEFORE the output stream opens: a bad buildings file must
+                # fail cleanly, not truncate/corrupt the requested output path.
+                with tracing.span("worker.open"):
+                    building_mask = None
+                    blocked_wet = {"cells": 0}
+                    if buildings_fp is not None:
+                        from floodsr_tpu_torch.features import building_mask_for_grid
+
+                        building_mask = building_mask_for_grid(
+                            buildings_fp,
+                            output_profile["transform"],
+                            tuple(prepped["dem_raw_shape"]),
+                            crs=str(output_profile["crs"]),
+                            logger_=log,
+                        )
+
+                    stream_writer = open_raster_stream(out_path, output_profile)
+                    row_sink = stream_writer.write_rows
+                    if building_mask is not None:
+                        row_cursor = {"row": 0}
+
+                        def row_sink(band, _w=stream_writer.write_rows):
+                            r0 = row_cursor["row"]
+                            m = building_mask[r0 : r0 + band.shape[0]]
+                            blocked_wet["cells"] += int(((band > 0) & m).sum())
+                            row_cursor["row"] = r0 + band.shape[0]
+                            _w(np.where(m, 0.0, band).astype(band.dtype, copy=False))
+
                 try:
-                    stream_writer._handle.close()
-                finally:
-                    Path(out_path).unlink(missing_ok=True)
-                raise
+                    prediction_out_m, tile_cache_size, tile_dem_stats = (
+                        self._run_tiled_model_on_prepared(
+                            depth_lr_raw=prepped["depth_lr"],
+                            dem_hr_raw=prepped["dem_hr"],
+                            depth_lr_profile=prepped["depth_lr_profile"],
+                            dem_hr_profile=prepped["dem_profile"],
+                            preprocess_cfg=preprocess_cfg,
+                            model_lr_tile=model_lr_tile,
+                            model_scale=model_scale,
+                            # The RUN tile (== contract tile unless overridden).
+                            contract_hr_tile=model_lr_tile * model_scale,
+                            window_method=window_method,
+                            overlap_lr=overlap_lr,
+                            post_resample=post_spec,
+                            row_sink=row_sink,
+                        )
+                    )
+                    with tracing.span("worker.check"):
+                        assert prediction_out_m.shape == tuple(prepped["dem_raw_shape"]), (
+                            f"prediction shape {prediction_out_m.shape} must match "
+                            f"raw DEM shape {prepped['dem_raw_shape']}"
+                        )
+                        if building_mask is not None:
+                            # Keep the in-memory prediction identical to the streamed
+                            # (masked) file contents.
+                            prediction_out_m = np.where(
+                                building_mask, 0.0, prediction_out_m
+                            ).astype(np.float32)
 
-        runtime_s = time.perf_counter() - start
+                        # The pipeline already clipped to [0, max_depth] and applied the
+                        # low-depth mask; a cheap range guard replaces host re-work.
+                        assert prediction_out_m.dtype == np.float32
+                        assert float(prediction_out_m.max(initial=0.0)) <= float(
+                            preprocess_cfg["max_depth"]
+                        ) + 1e-6, "postprocess failed to clip to max_depth"
+
+                        prepared_dem_bounds = raster_bounds(prepped["dem_raw_profile"])
+                        assert all(
+                            np.isclose(a, b, atol=1e-6, rtol=0.0)
+                            for a, b in zip(prepared_dem_bounds, depth_lr_bounds)
+                        ), (
+                            f"output profile bounds {prepared_dem_bounds} do not match "
+                            f"incoming low-res bounds {depth_lr_bounds}"
+                        )
+
+                    with tracing.span("worker.close"):
+                        stream_writer.close()
+                    out_written_fp = Path(out_path)
+                    from floodsr_tpu_torch.io.geotiff import read_raster_header
+
+                    with tracing.span("worker.verify"):
+                        written_profile = read_raster_header(out_written_fp)
+                        written_shape = (
+                            int(written_profile["height"]), int(written_profile["width"])
+                        )
+                        assert written_shape == tuple(prepped["dem_raw_shape"]), (
+                            f"written output shape {written_shape} must match raw DEM "
+                            f"shape {prepped['dem_raw_shape']}"
+                        )
+                        written_bounds = raster_bounds(written_profile)
+                        assert all(
+                            np.isclose(a, b, atol=1e-6, rtol=0.0)
+                            for a, b in zip(written_bounds, depth_lr_bounds)
+                        ), (
+                            f"written output bounds {written_bounds} must match incoming "
+                            f"low-res bounds {depth_lr_bounds}"
+                        )
+                except BaseException:
+                    # Cover the WHOLE produce-and-verify span (inference, range/
+                    # bounds asserts, stream close, written-file checks): any
+                    # failure must not leave a corrupt partial GeoTIFF at the
+                    # requested output path or leak the handle.
+                    try:
+                        stream_writer._handle.close()
+                    finally:
+                        Path(out_path).unlink(missing_ok=True)
+                    raise
+
         out_file_size = int(out_written_fp.stat().st_size)
         log.info(
-            f"finished tohr inference in {runtime_s:.3f}s; wrote {out_file_size:,} bytes to\n"
+            f"finished tohr inference in {root.seconds:.3f}s; wrote {out_file_size:,} bytes to\n"
             f"    {out_written_fp}"
         )
-        return {
+        result = {
             "output_fp": str(out_written_fp),
-            "runtime_s": float(runtime_s),
+            "runtime_s": root.seconds,
             "model_version": self.model_version,
             "model_fp": str(self.model_fp),
             "output_size_bytes": out_file_size,
@@ -782,10 +792,11 @@ class ModelWorker(Model):
             # EngineTorch.run_scene): h2d_s, exec_s, finish_s, and finish's
             # d2h_wait_s vs host_post_s (dequant/resample/encode); beside it
             # the read stage, whether it found the DEM resident, and the
-            # worker's DEM counts after this scene.
+            # worker's DEM counts after this scene. Each time is a span's;
+            # "trace" is the request's record, where this run opened it.
             "scene_timings": {
                 **(getattr(self.engine, "last_scene_timings", {}) or {}),
-                "read_s": read_s,
+                "read_s": read.seconds,
                 "dem_resident": dem_resident,
                 "dem_counts": dem_counts,
             },
@@ -830,3 +841,6 @@ class ModelWorker(Model):
                 },
             },
         }
+        if opened:
+            result["scene_timings"]["trace"] = trace.export(root)
+        return result

@@ -52,6 +52,17 @@ Endpoints::
     GET  /v1/doctor    runtime/device diagnostics (CLI `doctor` as JSON)
     GET  /v1/metrics   Prometheus text-format counters
 
+Every request is a record of spans (:mod:`floodsr_tpu_torch.tracing`):
+``service.request`` and a ``service.job`` per scene on the caller's thread,
+the worker's spans on the device thread, a batch's DEM prefetch on its own.
+Each scene's answer carries its view of the record as
+``scene_timings["trace"]``. ``floodsr_device_busy_seconds`` sums the
+requests' ``device_s``: the stream's wall time, timed by CUDA events, from
+each scene's upload to the executor's return and over the finish's device
+part and download. Gaps between launches and the host's waits inside the
+executor count, so while the executor is bound by its launches this is
+close to those stages' host time, not the device's busy time.
+
 ``/v1/tohr_many`` streams the batch under one lock acquisition with the
 ``run_many`` pipeline shape: scene N+1's DEM decodes and uploads in a
 background thread while scene N computes — the HTTP analogue of
@@ -73,6 +84,7 @@ counters and the process-wide precision flags see one thread, always the same.
 
 from __future__ import annotations
 
+import contextvars
 import json
 import logging
 import threading
@@ -84,6 +96,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from floodsr_tpu_torch import tracing
 from floodsr_tpu_torch.model_registry import resolve_model_worker_class
 
 logger = logging.getLogger(__name__)
@@ -243,7 +256,11 @@ class TohrService:
             self._device_thread = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="floodsr-device"
             )
-        return self._device_thread.submit(fn, *args, **kw).result()
+        # In a copy of the caller's context: the request open there (its
+        # spans) continues on the device thread.
+        return self._device_thread.submit(
+            contextvars.copy_context().run, fn, *args, **kw
+        ).result()
 
     # -- request handling ----------------------------------------------------
 
@@ -403,24 +420,37 @@ class TohrService:
 
     def handle_tohr(self, payload: dict) -> dict:
         """Validate one machine-interface payload and run it on the worker."""
-        body = self._unwrap(payload, "tohr")
-        run_kwargs, f_dem, f_bld, f_out = self._translate_body(body)
-        self._check_data_root(run_kwargs, f_out)
-        assert self._worker is not None, "service not started"
-        self._acquire_slot()
-        try:
-            with self._device_lock:
-                run_kwargs = self._resolve_fetches(run_kwargs, f_dem, f_bld, f_out)
-                started = time.perf_counter()
-                result = self._on_device_thread(self._worker.run, **run_kwargs)
-                elapsed = time.perf_counter() - started
-        finally:
-            self._release_slot()
+        with tracing.request() as trace, tracing.span("service.request"):
+            body = self._unwrap(payload, "tohr")
+            run_kwargs, f_dem, f_bld, f_out = self._translate_body(body)
+            self._check_data_root(run_kwargs, f_out)
+            assert self._worker is not None, "service not started"
+            self._acquire_slot()
+            try:
+                with tracing.span("service.job") as job, self._device_lock:
+                    run_kwargs = self._resolve_fetches(run_kwargs, f_dem, f_bld, f_out)
+                    result = _json_safe(
+                        self._on_device_thread(self._worker.run, **run_kwargs)
+                    )
+            finally:
+                self._release_slot()
+        device_s = self._attach_trace(result, trace, job)
         with self._stats_lock:
-            self._device_busy_s += elapsed
+            self._device_busy_s += device_s
             self._requests_done += 1
             self._scenes_done += 1
-        return _json_safe(result)
+        return result
+
+    @staticmethod
+    def _attach_trace(result: dict, trace, job) -> float:
+        """Put the request's record, as ``job`` sees it, in the result's
+        ``scene_timings["trace"]`` (a worker that keeps no ``scene_timings``
+        gets none); returns its device seconds (``device_s``)."""
+        timings = result.get("scene_timings") if isinstance(result, dict) else None
+        if not isinstance(timings, dict):
+            return 0.0
+        timings["trace"] = record = trace.export(job)
+        return float(record["counters"].get("device_s", 0.0))
 
     #: Scenes per /v1/tohr_many request. A batch occupies one pending slot
     #: for its whole runtime, so an unbounded batch would defeat the
@@ -435,6 +465,21 @@ class TohrService:
         the response carries ``"ok"``: a failed scene reports its error in
         place and the batch continues — earlier outputs on disk are valid.
         """
+        with tracing.request() as trace, tracing.span("service.request"):
+            results, job_spans = self._run_batch(payload)
+        device_s = sum(
+            self._attach_trace(result, trace, job)
+            for result, job in zip(results, job_spans) if result["ok"]
+        )
+        with self._stats_lock:
+            self._device_busy_s += device_s
+            self._requests_done += 1
+            self._scenes_done += sum(result["ok"] for result in results)
+        return results
+
+    def _run_batch(self, payload: dict) -> tuple[list[dict], list]:
+        """:meth:`handle_tohr_many`'s validation and jobs, in its request:
+        the results and each job's span."""
         body = self._unwrap(payload, "tohr_many")
         jobs_spec = body.get("jobs")
         if not isinstance(jobs_spec, list) or not jobs_spec:
@@ -468,46 +513,44 @@ class TohrService:
 
         assert self._worker is not None, "service not started"
         can_prefetch = hasattr(self._worker, "prefetch_dem")
+        # A prefetch works for the request, not for the job that starts it:
+        # its thread's spans hang under service.request.
+        request_context = contextvars.copy_context()
         results: list[dict] = []
-        scenes_ok = 0
+        job_spans = []
         self._acquire_slot()
         try:
             with self._device_lock:
-                started = time.perf_counter()
                 for i, (job, (f_dem, f_bld, f_out)) in enumerate(
                     zip(jobs, fetches)
                 ):
-                    try:
-                        self._resolve_fetches(job, f_dem, f_bld, f_out)
-                        # run_many's pipeline shape: next scene's DEM decodes
-                        # and uploads in the background while this one runs
-                        # (only for already-resolved local DEM paths).
-                        if can_prefetch and i + 1 < len(jobs):
-                            nxt = jobs[i + 1].get("dem_hr_fp")
-                            if nxt is not None:
-                                self._worker.prefetch_dem(nxt)
-                        result = _json_safe(
-                            self._on_device_thread(self._worker.run, **job)
-                        )
-                        result["ok"] = True
-                        scenes_ok += 1
-                    except Exception as err:  # noqa: BLE001 — report per job
-                        self.log.error(f"serve: batch job {i} failed: {err}")
-                        self.log.debug("serve: job traceback", exc_info=True)
-                        result = {
-                            "ok": False,
-                            "error": str(err),
-                            "output_fp": str(job.get("output_fp")),
-                        }
+                    with tracing.span("service.job") as job_span:
+                        try:
+                            self._resolve_fetches(job, f_dem, f_bld, f_out)
+                            # run_many's pipeline shape: next scene's DEM decodes
+                            # and uploads in the background while this one runs
+                            # (only for already-resolved local DEM paths).
+                            if can_prefetch and i + 1 < len(jobs):
+                                nxt = jobs[i + 1].get("dem_hr_fp")
+                                if nxt is not None:
+                                    request_context.run(self._worker.prefetch_dem, nxt)
+                            result = _json_safe(
+                                self._on_device_thread(self._worker.run, **job)
+                            )
+                            result["ok"] = True
+                        except Exception as err:  # noqa: BLE001 — report per job
+                            self.log.error(f"serve: batch job {i} failed: {err}")
+                            self.log.debug("serve: job traceback", exc_info=True)
+                            result = {
+                                "ok": False,
+                                "error": str(err),
+                                "output_fp": str(job.get("output_fp")),
+                            }
                     results.append(result)
-                elapsed = time.perf_counter() - started
+                    job_spans.append(job_span)
         finally:
             self._release_slot()
-        with self._stats_lock:
-            self._device_busy_s += elapsed
-            self._requests_done += 1
-            self._scenes_done += scenes_ok
-        return results
+        return results, job_spans
 
     def note_failure(self) -> None:
         with self._stats_lock:
@@ -526,7 +569,8 @@ class TohrService:
         }
 
     def metrics_text(self) -> str:
-        """Prometheus text exposition of the serving counters."""
+        """Prometheus text exposition of the serving counters
+        (``floodsr_device_busy_seconds``: see the module docstring)."""
         lines = []
         for name, kind, value in (
             ("floodsr_requests_done", "counter", self._requests_done),
