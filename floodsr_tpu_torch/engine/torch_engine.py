@@ -66,6 +66,7 @@ from floodsr_tpu_torch.engine.scene_banded import (
     build_banded_scene_executor,
     pack_band_indices,
 )
+from floodsr_tpu_torch.io.tiff import codes_writer
 from floodsr_tpu_torch.nn.checkpoint import load_artifact, params_from_jax
 from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig, resolve_precision_policy
 from floodsr_tpu_torch.ops.normalize import (
@@ -577,6 +578,7 @@ class EngineTorch(EngineBase):
             "host_dequant_s": seconds.get("finish.dequant", 0.0),
             "host_resample_s": seconds.get("finish.resample", 0.0),
             "host_sink_s": seconds.get("finish.sink", 0.0),
+            "fused_strips": int(counters.get("fused_strips", 0)),
             "host_post_s": seconds.get("finish.host", 0.0),
         }
 
@@ -774,7 +776,13 @@ class EngineTorch(EngineBase):
         ``output_transfer="uint12"`` the uint16 codes are reduced to 12 bits
         and packed on the device (:meth:`_pack12`) and unpacked here
         (:meth:`_unpack12`). Rows go to ``row_sink`` in bands as they are
-        finished.
+        finished, except where the device post-processed a ``uint16`` scene
+        and ``row_sink`` is a :class:`~floodsr_tpu_torch.io.tiff.StripStreamWriter`
+        that takes codes: there the codec threads dequantize each strip as
+        they encode it, in one pass over the scene
+        (:meth:`~floodsr_tpu_torch.io.tiff.StripStreamWriter.write_codes`; the
+        same values and file bytes), counted as ``fused_strips`` on the span
+        ``finish.sink``.
         """
         crop_h, crop_w = crop_shape
         transfer12 = self.output_transfer == "uint12"
@@ -823,9 +831,16 @@ class EngineTorch(EngineBase):
             host = band.cpu().numpy()
             f1 = clock.mark()
             d2h.add("d2h_bytes", int(host.nbytes))
+        writer = (
+            codes_writer(row_sink, host.shape)
+            if device_masked and host.dtype == np.uint16
+            else None
+        )
         with tracing.span("finish.host"):
             with tracing.span("finish.dequant"):
-                if transfer12:
+                if writer is not None:
+                    scene = np.empty(host.shape, np.float32)  # filled by the sink's pass
+                elif transfer12:
                     scene = self._unpack12(host, crop_w, dequant)
                 elif dequant is not None:
                     scene = host.astype(np.float32)
@@ -850,8 +865,10 @@ class EngineTorch(EngineBase):
             else:
                 scene = np.clip(scene, 0.0, max_depth)
                 final = np.where(scene < low_depth_mask_m, 0.0, scene).astype(np.float32)
-            with tracing.span("finish.sink"):
-                if row_sink is not None:
+            with tracing.span("finish.sink") as sink:
+                if writer is not None:
+                    sink.add("fused_strips", writer.write_codes(host, dequant, final))
+                elif row_sink is not None:
                     band_rows = 512
                     for r in range(0, final.shape[0], band_rows):
                         row_sink(final[r : r + band_rows])

@@ -10,14 +10,20 @@
 //   fsr_lzw_decode / fsr_lzw_encode           one chunk (legacy ABI)
 //   fsr_lzw_decode_strips                     whole striped image -> dst
 //   fsr_lzw_encode_strips                     whole array -> packed strips
+//   fsr_dequant_encode_{begin,wait,end}       uint16 codes -> float32 image
+//                                             and its strips, one pass
 //   fsr_predictor{2,3}_{undo,apply}           TIFF predictor transforms
 //
 // The strip entry points fold the per-strip Python loop, the predictor
 // transform, and the destination assembly into one call, so a whole scene
 // encodes or decodes without a Python loop per strip.
 
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -40,7 +46,8 @@ constexpr int kMaxCode = 4094;  // encoder resets before table overflows
 //      (A 64-bit generation-stamped variant would live in L2.)
 //   2. The table lives behind a thread_local POINTER (one TLS resolve per
 //      call); a thread_local array pays per-access TLS addressing
-//      under -fPIC.
+//      under -fPIC. The pointer owns the table, so a codec thread's exit
+//      frees it.
 //   3. Byte-run fast path: flood-depth rasters are ~half exact-zero bytes
 //      in long runs. Greedy LZW walks a run one serial table hit per byte;
 //      the fast path recognizes the run with an 8-byte-wide scan and plays
@@ -69,7 +76,7 @@ struct EncState {
   uint16_t run_len[256];      // its length (1 = just the literal)
 };
 
-thread_local EncState* g_enc = nullptr;
+thread_local std::unique_ptr<EncState> g_enc;
 
 inline uint32_t enc_hash(uint32_t key) {
   return (key * 2654435761u) >> (32 - kHashBits);
@@ -95,8 +102,8 @@ inline void store32be(unsigned char* p, uint32_t v) {
 
 long long lzw_encode_one(const unsigned char* src, long long src_len,
                          unsigned char* dst, long long dst_cap) {
-  if (g_enc == nullptr) g_enc = new EncState();  // value-init zeroes two/gen
-  EncState* t = g_enc;
+  if (!g_enc) g_enc.reset(new EncState());  // value-init zeroes two/gen
+  EncState* t = g_enc.get();
   enc_reset(t);
   uint32_t* slot = t->slot;
   uint32_t* two = t->two;
@@ -659,19 +666,14 @@ long long fsr_lzw_decode_strips(
   return dst_off[static_cast<size_t>(n_strips)];
 }
 
-// Encode one strip (predictor + LZW) into dst; returns encoded bytes or <0.
-static long long encode_one_strip(
-    const unsigned char* src, long long src_len, long long strip_bytes,
-    long long s, long long cols, int itemsize, int predictor,
-    unsigned char* dst, long long dst_cap) {
+// Encode one chunk of whole rows (predictor + LZW) into dst; returns encoded
+// bytes or <0.
+static long long encode_chunk(const unsigned char* chunk, long long want,
+                              long long cols, int itemsize, int predictor,
+                              unsigned char* dst, long long dst_cap) {
   const long long row_bytes = cols * itemsize;
-  const long long in_off = s * strip_bytes;
-  const long long want = (in_off + strip_bytes <= src_len)
-                             ? strip_bytes
-                             : src_len - in_off;
   if (want <= 0 || want % row_bytes != 0) return -3;
   const long long rows = want / row_bytes;
-  const unsigned char* chunk = src + in_off;
   if (predictor == 2) {
     g_scratch.resize(static_cast<size_t>(want));
     std::memcpy(g_scratch.data(), chunk, static_cast<size_t>(want));
@@ -689,6 +691,19 @@ static long long encode_one_strip(
     return -3;
   }
   return lzw_encode_one(chunk, want, dst, dst_cap);
+}
+
+// Encode strip `s` of the contiguous source array into dst.
+static long long encode_one_strip(
+    const unsigned char* src, long long src_len, long long strip_bytes,
+    long long s, long long cols, int itemsize, int predictor,
+    unsigned char* dst, long long dst_cap) {
+  const long long in_off = s * strip_bytes;
+  const long long want = (in_off + strip_bytes <= src_len)
+                             ? strip_bytes
+                             : src_len - in_off;
+  return encode_chunk(src + in_off, want, cols, itemsize, predictor, dst,
+                      dst_cap);
 }
 
 // Encode the contiguous source array as `n_strips` LZW strips of
@@ -750,6 +765,131 @@ long long fsr_lzw_encode_strips(
     out_pos += n;
   }
   return out_pos;
+}
+
+// ---- one pass: dequantize and encode a whole image ---------------------------
+
+// A whole image's finish in one pass over the codec threads: each thread takes
+// the next strip from a shared counter, writes float(code) * step into `dst`
+// for the strip's rows (the float32 product numpy forms for
+// `codes.astype(np.float32) * np.float32(step)`), then applies the predictor
+// and LZW-encodes those rows from `dst` while they are still in cache. Strip s
+// lands in out[s * strip_cap, s * strip_cap + counts[s]): the same payload
+// fsr_lzw_encode_strips gives for `dst` (deterministic per-strip streams).
+// The caller writes strip k once fsr_dequant_encode_wait reports strips
+// 0..k done, while the threads encode later strips.
+struct DequantEncodePass {
+  const uint16_t* codes;
+  float* dst;
+  long long rows, cols, strip_rows, n_strips;
+  float step;
+  int predictor;
+  unsigned char* out;
+  long long strip_cap;
+  long long* counts;
+  std::atomic<long long> next{0};
+  std::atomic<bool> stop{false};
+  std::mutex mu;
+  std::condition_variable cv;
+  std::vector<unsigned char> done;  // per strip, under mu
+  long long ready = 0;              // strips 0..ready-1 are encoded, under mu
+  long long error = 0;              // the first strip's failure (<0), under mu
+  std::vector<std::thread> threads;
+};
+
+static void dequant_encode_worker(DequantEncodePass* p) {
+  for (;;) {
+    if (p->stop.load(std::memory_order_relaxed)) return;
+    const long long s = p->next.fetch_add(1);
+    if (s >= p->n_strips) return;
+    const long long r0 = s * p->strip_rows;
+    const long long r1 =
+        r0 + p->strip_rows < p->rows ? r0 + p->strip_rows : p->rows;
+    const uint16_t* in = p->codes + r0 * p->cols;
+    float* o = p->dst + r0 * p->cols;
+    const long long count = (r1 - r0) * p->cols;
+    const float step = p->step;
+    for (long long i = 0; i < count; ++i) o[i] = static_cast<float>(in[i]) * step;
+    const long long n = encode_chunk(
+        reinterpret_cast<const unsigned char*>(o),
+        count * static_cast<long long>(sizeof(float)), p->cols,
+        static_cast<int>(sizeof(float)), p->predictor,
+        p->out + s * p->strip_cap, p->strip_cap);
+    {
+      std::lock_guard<std::mutex> lock(p->mu);
+      p->counts[s] = n;
+      p->done[static_cast<size_t>(s)] = 1;
+      if (n < 0) {
+        if (p->error == 0) p->error = n;
+        p->stop.store(true, std::memory_order_relaxed);
+      }
+      while (p->ready < p->n_strips && p->done[static_cast<size_t>(p->ready)] &&
+             p->counts[p->ready] >= 0) {
+        ++p->ready;
+      }
+    }
+    p->cv.notify_all();
+  }
+}
+
+// Start the pass over `rows` x `cols` codes (row-major, C-contiguous, as is
+// `dst`) in strips of `strip_rows` rows (the last may be short) on
+// `n_threads` threads (at least one, at most one a strip). `out` holds
+// `out_cap` >= n_strips * strip_cap bytes; `counts` n_strips entries.
+// Predictor 1 or 3 (the float predictor). Returns the pass, or null when an
+// argument is out of range (nothing is written then).
+void* fsr_dequant_encode_begin(const uint16_t* codes, float* dst,
+                               long long rows, long long cols, float step,
+                               long long strip_rows, int predictor,
+                               unsigned char* out, long long out_cap,
+                               long long strip_cap, long long* counts,
+                               int n_threads) {
+  if (rows <= 0 || cols <= 0 || strip_rows <= 0 || strip_cap <= 0) return nullptr;
+  if (predictor != 1 && predictor != 3) return nullptr;
+  const long long n_strips = (rows + strip_rows - 1) / strip_rows;
+  if (out_cap / strip_cap < n_strips) return nullptr;
+  auto* p = new DequantEncodePass();
+  p->codes = codes;
+  p->dst = dst;
+  p->rows = rows;
+  p->cols = cols;
+  p->strip_rows = strip_rows;
+  p->n_strips = n_strips;
+  p->step = step;
+  p->predictor = predictor;
+  p->out = out;
+  p->strip_cap = strip_cap;
+  p->counts = counts;
+  p->done.assign(static_cast<size_t>(n_strips), 0);
+  const long long workers =
+      n_threads < 1 ? 1 : (n_threads < n_strips ? n_threads : n_strips);
+  p->threads.reserve(static_cast<size_t>(workers));
+  for (long long t = 0; t < workers; ++t) {
+    p->threads.emplace_back(dequant_encode_worker, p);
+  }
+  return p;
+}
+
+// Block until strips 0..k-1 are encoded (k is clamped to the strip count).
+// Returns how many leading strips are encoded (>= k), or the first failed
+// strip's code (<0: -2 a strip overflowed strip_cap).
+long long fsr_dequant_encode_wait(void* handle, long long k) {
+  auto* p = static_cast<DequantEncodePass*>(handle);
+  if (k > p->n_strips) k = p->n_strips;
+  std::unique_lock<std::mutex> lock(p->mu);
+  p->cv.wait(lock, [&] { return p->error < 0 || p->ready >= k; });
+  return p->error < 0 ? p->error : p->ready;
+}
+
+// Stop handing out strips, join the threads and free the pass. Returns 0, or
+// the first failed strip's code. Call once for every pass begun.
+long long fsr_dequant_encode_end(void* handle) {
+  auto* p = static_cast<DequantEncodePass*>(handle);
+  p->stop.store(true, std::memory_order_relaxed);
+  for (auto& th : p->threads) th.join();
+  const long long error = p->error;
+  delete p;
+  return error;
 }
 
 }  // extern "C"

@@ -12,8 +12,10 @@ import time
 from pathlib import Path
 
 
-def build(verbose: bool = True, retries: int = 1) -> Path | None:
-    src_dir = Path(__file__).parent / "_native"
+def build(verbose: bool = True, retries: int = 1, src_dir: Path | None = None) -> Path | None:
+    """Compile ``src_dir``'s ``tiff_codec.cc`` (default: this package's
+    ``_native``) into ``libfloodsr_tiff.so`` beside it; None on failure."""
+    src_dir = Path(__file__).parent / "_native" if src_dir is None else Path(src_dir)
     src = src_dir / "tiff_codec.cc"
     out = src_dir / "libfloodsr_tiff.so"
     # Compile to a process-unique temp name, then atomically rename: a

@@ -39,7 +39,7 @@ def _load() -> ctypes.CDLL | None:
             return None
         from floodsr_tpu_torch.io.build_native import build
 
-        if build(verbose=False) is None:
+        if build(verbose=False, src_dir=_LIB_PATH.parent) is None:
             _build_failed = True
             return None
     if src.exists() and _LIB_PATH.stat().st_mtime < src.stat().st_mtime:
@@ -51,7 +51,7 @@ def _load() -> ctypes.CDLL | None:
         # a lenient-Python fallback for the one known stale-binary bug.
         from floodsr_tpu_torch.io.build_native import build
 
-        build(verbose=False)
+        build(verbose=False, src_dir=_LIB_PATH.parent)
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
         c_ll = ctypes.c_longlong
@@ -89,6 +89,20 @@ def _load() -> ctypes.CDLL | None:
             lib._fsr_has_strips = True
         except AttributeError:
             lib._fsr_has_strips = False
+        # The one-pass dequant + encode is absent from earlier builds.
+        try:
+            lib.fsr_dequant_encode_begin.restype = ctypes.c_void_p
+            lib.fsr_dequant_encode_begin.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, c_ll, c_ll, ctypes.c_float,
+                c_ll, ctypes.c_int, ctypes.c_void_p, c_ll, c_ll, c_llp, ctypes.c_int,
+            ]
+            lib.fsr_dequant_encode_wait.restype = c_ll
+            lib.fsr_dequant_encode_wait.argtypes = [ctypes.c_void_p, c_ll]
+            lib.fsr_dequant_encode_end.restype = c_ll
+            lib.fsr_dequant_encode_end.argtypes = [ctypes.c_void_p]
+            lib._fsr_has_dequant_encode = True
+        except AttributeError:
+            lib._fsr_has_dequant_encode = False
         _lib = lib
     except OSError:
         _load_failed = True
@@ -137,6 +151,12 @@ def strips_available() -> bool:
     """Whether the loaded library has the strip-batch + predictor entries."""
     lib = _load()
     return lib is not None and getattr(lib, "_fsr_has_strips", False)
+
+
+def dequant_encode_available() -> bool:
+    """Whether the loaded library has the one-pass dequant + encode."""
+    lib = _load()
+    return lib is not None and getattr(lib, "_fsr_has_dequant_encode", False)
 
 
 def default_codec_threads() -> int:
@@ -240,6 +260,103 @@ def lzw_encode_strips(
     if n < 0:
         raise ValueError(f"native strip encode failed with code {n}")
     return out[:n], [int(v) for v in sizes]
+
+
+class DequantEncodePass:
+    """A whole image's uint16 codes dequantized and LZW-encoded in one native
+    pass over the codec threads.
+
+    Each of :func:`default_codec_threads` threads takes the next strip of
+    ``rows_per_strip`` rows from a shared counter, writes ``float32(code) *
+    float32(step)`` into ``dst`` for those rows (bit for bit
+    ``codes.astype(np.float32) * np.float32(step)``), then applies
+    ``predictor`` (1 or 3) and encodes them from ``dst``: strip ``s``'s payload
+    equals :func:`lzw_encode_strips`'s for ``dst``. ``codes`` is a 2-D uint16
+    array, ``dst`` a C-contiguous float32 array of its shape.
+
+    The threads start on construction. :meth:`wait` blocks (the interpreter
+    lock released) until the leading strips are encoded, :meth:`strip` is an
+    encoded strip's payload, and :meth:`close` (or leaving the ``with``
+    block) stops the threads and joins them. ``dst`` is complete only after a
+    close that follows a :meth:`wait` for every strip.
+    """
+
+    def __init__(
+        self,
+        codes,
+        step: float,
+        dst,
+        *,
+        rows_per_strip: int,
+        predictor: int = 1,
+    ):
+        import numpy as np
+
+        lib = _load()
+        assert lib is not None and lib._fsr_has_dequant_encode, (
+            "native dequant + encode not available"
+        )
+        codes = np.ascontiguousarray(codes)
+        if codes.ndim != 2 or codes.dtype != np.uint16:
+            raise ValueError(f"codes must be 2-D uint16, got {codes.dtype} {codes.shape}")
+        if (
+            dst.dtype != np.float32
+            or dst.shape != codes.shape
+            or not dst.flags.c_contiguous
+            or not dst.flags.writeable
+        ):
+            raise ValueError("dst must be a writable C-contiguous float32 array of codes' shape")
+        if rows_per_strip < 1 or predictor not in (1, 3) or codes.size == 0:
+            raise ValueError(
+                f"bad pass: rows_per_strip={rows_per_strip} predictor={predictor} "
+                f"shape={codes.shape}"
+            )
+        rows, cols = codes.shape
+        self.n_strips = -(-rows // int(rows_per_strip))
+        strip_bytes = int(rows_per_strip) * cols * 4
+        self._strip_cap = strip_bytes + (strip_bytes >> 1) + 64  # LZW's bound
+        self._lib = lib
+        # the native threads read and write these until close()
+        self._codes, self._dst = codes, dst
+        self._out = np.empty(self.n_strips * self._strip_cap, np.uint8)
+        self.counts = np.zeros(self.n_strips, np.int64)
+        self._handle = lib.fsr_dequant_encode_begin(
+            codes.ctypes.data, dst.ctypes.data, rows, cols,
+            float(np.float32(step)), int(rows_per_strip), int(predictor),
+            self._out.ctypes.data, self._out.nbytes, self._strip_cap,
+            self.counts.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            default_codec_threads(),
+        )
+        if not self._handle:
+            raise ValueError("native dequant + encode rejected its arguments")
+
+    def wait(self, k: int) -> int:
+        """Block until strips ``0..k-1`` are encoded; returns how many leading
+        strips are (``k`` or more). Raises when a strip failed."""
+        n = self._lib.fsr_dequant_encode_wait(self._handle, int(k))
+        if n < 0:
+            raise ValueError(f"native dequant + encode failed with code {n}")
+        return int(n)
+
+    def strip(self, s: int):
+        """Strip ``s``'s encoded payload (a uint8 view), once :meth:`wait`
+        has covered it."""
+        start = s * self._strip_cap
+        return self._out[start : start + int(self.counts[s])]
+
+    def close(self) -> None:
+        """Stop and join the threads, and free the strips' buffer."""
+        if self._handle:
+            handle, self._handle = self._handle, None
+            self._lib.fsr_dequant_encode_end(handle)
+            self._out = None
+
+    def __enter__(self) -> "DequantEncodePass":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
 
 
 def _predictor_rows_args(arr):

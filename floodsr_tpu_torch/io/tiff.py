@@ -1038,6 +1038,20 @@ def _serialize_ifd(
     return bytes(ifd), bytes(payloads)
 
 
+def codes_writer(row_sink, shape: tuple[int, ...]) -> "StripStreamWriter | None":
+    """The :class:`StripStreamWriter` whose own ``write_rows`` is ``row_sink``
+    (not a wrapper around it) when it can take a whole image of ``shape`` as
+    uint16 codes (:meth:`StripStreamWriter.write_codes`), else None."""
+    writer = getattr(row_sink, "__self__", None)
+    if (
+        isinstance(writer, StripStreamWriter)
+        and row_sink.__func__ is StripStreamWriter.write_rows
+        and writer.takes_codes(shape)
+    ):
+        return writer
+    return None
+
+
 class StripStreamWriter:
     """Incremental striped-TIFF writer: feed row bands, strips hit disk as
     they compress.
@@ -1169,6 +1183,55 @@ class StripStreamWriter:
         self._handle.write(blob)
         if len(blob) % 2:
             self._handle.write(b"\0")
+
+    def takes_codes(self, shape: tuple[int, ...]) -> bool:
+        """Whether :meth:`write_codes` can write a whole image of ``shape``:
+        float32 samples, LZW, the native pass loaded, no row written yet."""
+        return (
+            self._compression == COMPRESSION_LZW
+            and self._dtype == np.float32
+            and self._predictor in (1, 3)
+            and self._rows_done == 0
+            and tuple(shape) == (self._height, self._width)
+            and _native.dequant_encode_available()
+        )
+
+    def write_codes(self, codes: np.ndarray, step: float, dst: np.ndarray) -> int:
+        """Write the whole image from its uint16 ``codes``: one native pass
+        (:class:`~floodsr_tpu_torch.io.native.DequantEncodePass`) fills ``dst``
+        with ``float32(code) * float32(step)`` and encodes each strip from it,
+        while this thread writes the strips already encoded, in file order.
+
+        The file's bytes equal those of :meth:`write_rows` fed
+        ``codes.astype(np.float32) * np.float32(step)`` in any bands. Span
+        ``sink.encode`` is the time this thread waits on the codec threads,
+        ``sink.write`` its writes. Returns the number of strips written.
+        """
+        assert self.takes_codes(codes.shape), "write_codes needs takes_codes()"
+        # Starting the threads and stopping them (the join, the strips'
+        # buffer freed) are the pool's work too: spans sink.encode.
+        with tracing.span("sink.encode"):
+            job = _native.DequantEncodePass(
+                codes, step, dst, rows_per_strip=self._rps, predictor=self._predictor
+            )
+        try:
+            n = job.n_strips
+            # Wait for a few strips at a time: two spans a batch, and at most
+            # a batch left to write once the last strip is encoded.
+            batch = max(1, n // 16)
+            written = 0
+            while written < n:
+                with tracing.span("sink.encode"):
+                    ready = job.wait(min(n, written + batch))
+                with tracing.span("sink.write"):
+                    for s in range(written, ready):
+                        self._write_strip(job.strip(s))
+                written = ready
+        finally:
+            with tracing.span("sink.encode"):
+                job.close()
+        self._rows_done = self._height
+        return n
 
     def write_rows(self, band: np.ndarray) -> None:
         band = np.ascontiguousarray(band, self._dtype)
