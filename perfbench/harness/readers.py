@@ -4,14 +4,13 @@ calls and trace, reduced. A reader returns None where it finds nothing to read.
 ``run`` carries ``calls`` (one per request: ``t0``, ``t1``, ``latency_s``,
 ``jobs``, ``results``), ``jobs`` (``(job, result)`` of every job that
 completed), ``window_s``, ``setup_s``, ``trace`` (None without ``--trace 1``),
-``cfg``, ``arch``, ``mix``, ``geometry`` and ``windows_per_job``.
+``cfg``, ``mix``, ``geometry``, and the family's ``arch`` and
+``windows_per_job`` (None for a family without windows).
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from perfbench.harness import work
 
 
 def completed_mp(run) -> float:
@@ -37,4 +36,6 @@ def device_seconds(run, fragments: tuple[str, ...]) -> float:
 
 
 def peak_flops(run) -> float:
+    from perfbench.harness import work  # the ResUNet's shapes: not loaded for other families
+
     return work.PEAK_FLOPS[run.cfg["policy"]["compute_dtype"]]

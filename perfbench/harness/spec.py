@@ -1,10 +1,11 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell names a configuration (``configs/<name>.json``) and a traffic mix
-(``traffic/<name>.json``); a mix names its loop (``loops/<name>.py``) and its
+(``traffic/<name>.json``); a configuration names its model family
+(``families/<name>.py``); a mix names its loop (``loops/<name>.py``) and its
 front (``fronts/<name>.py``); a metric is ``metrics/<name>.py``. A later
-cell, mix, loop, front or metric is a new file and a new entry, never an
-edit here.
+cell, family, mix, loop, front or metric is a new file and a new entry, never
+an edit here.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def metrics_of(cell_name: str, kind: str) -> list[dict]:
 
 
 def module(kind: str, name: str):
-    """The module ``<kind>/<name>.py`` (``metrics``, ``loops`` or ``fronts``)."""
+    """The module ``<kind>/<name>.py`` (``metrics``, ``loops``, ``fronts`` or ``families``)."""
     fp = BENCH_DIR / kind / f"{name}.py"
     if not fp.is_file():
         raise KeyError(f"no file {kind}/{name}.py")
@@ -70,3 +71,19 @@ def module(kind: str, name: str):
 def metric_reader(name: str):
     """The module ``metrics/<name>.py``; its ``read(run)`` returns a number or None."""
     return module("metrics", name)
+
+
+def family(cfg: dict):
+    """The module ``families/<name>.py`` of the configuration's ``family``
+    (``resunet`` where it names none): what the harness knows of the model.
+
+    It gives ``artifact(cfg, workdir, device)``, the file served as
+    ``model_fp``; ``service_options(cfg)``, the service's ``engine_options``;
+    ``warmup_shapes(cfg, plan)``, the HR shapes ``TohrService.warmup`` builds;
+    ``lr_raster(cfg, dem, base_m, offset_m, tilt_m, lr_shape)``, a scenario's
+    LR input (``traffic.build``); ``per_job(cfg, plan)``, the run's ``arch``
+    and ``windows_per_job`` for the work counts (either may be None); and
+    ``judge(cfg, plan, done, limits, device, control)``, every check of the
+    outputs as ``{"value", "limit"}``, ``judged`` among them.
+    """
+    return module("families", cfg.get("family", "resunet"))

@@ -1,11 +1,12 @@
 """The one generator of every traffic mix: scenes and requests from the seed.
 
 A mix (``traffic/<name>.json``) gives the scene geometry, how many distinct
-areas (DEMs) and flood scenarios (LR depths) the seed draws, whether each job
+areas (DEMs) and flood scenarios the seed draws, whether each job
 names its DEM through a new hard link (so the program's path-keyed DEM cache
 never finds it), how many jobs go into one call, and how many requests are
 judged. Every seed draws the same sizes and the same spread of flood levels,
-in another order over other terrain.
+in another order over other terrain. A scenario's LR raster (a depth, or a
+water surface) is the model family's (``families/<name>.py::lr_raster``).
 
 Keys: ``lr_shape``, ``lr_res_m``, ``hr_shape``, ``epsg``, ``west``, ``south``,
 ``nodata``, ``relief_m``, ``areas``, ``scenarios``, ``offset_m`` and
@@ -20,10 +21,11 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
-from perfbench.harness.synth import depth_lr, make_terrain
+from perfbench.harness.synth import make_terrain
 from perfbench.reference.tiff import write_geotiff
 
 
@@ -42,7 +44,7 @@ class Area:
 @dataclass
 class Scenario:
     area: int
-    depth: np.ndarray
+    lr: np.ndarray
     lr_path: Path
     offset_m: float
     tilt_m: float
@@ -104,9 +106,11 @@ class Plan:
                 j.dem_path.unlink(missing_ok=True)
 
 
-def build(mix: dict, seed: int, workdir: Path, max_depth: float) -> Plan:
+def build(mix: dict, seed: int, workdir: Path,
+          lr_raster: Callable[[np.ndarray, float, float, float, tuple], np.ndarray]) -> Plan:
     """Draw the areas and scenarios of ``mix`` from ``seed`` and write them
-    as GeoTIFFs under ``workdir``."""
+    as GeoTIFFs under ``workdir``; ``lr_raster(dem, base_m, offset_m, tilt_m,
+    lr_shape)`` makes a scenario's LR input."""
     lr_shape = tuple(mix["lr_shape"])
     hr_shape = tuple(mix["hr_shape"])
     lr_res = float(mix["lr_res_m"])
@@ -139,16 +143,16 @@ def build(mix: dict, seed: int, workdir: Path, max_depth: float) -> Plan:
     tilts = (tlo + (thi - tlo) * rng.permutation(strata)) * np.where(np.arange(n) % 2, -1.0, 1.0)
     for k in range(n):
         area = k % len(plan.areas)
-        depth = depth_lr(
+        lr = lr_raster(
             plan.areas[area].dem, plan.areas[area].base_m, float(offsets[k]), float(tilts[k]),
-            lr_shape, max_depth,
+            lr_shape,
         )
         fp = workdir / f"depth_{k}.tif"
         plan.bytes_written += write_geotiff(
-            fp, depth, west=g["west"], north=g["north"], res=lr_res, epsg=g["epsg"],
+            fp, lr, west=g["west"], north=g["north"], res=lr_res, epsg=g["epsg"],
             nodata=g["nodata"],
         )
-        plan.scenarios.append(Scenario(area, depth, fp, float(offsets[k]), float(tilts[k])))
+        plan.scenarios.append(Scenario(area, lr, fp, float(offsets[k]), float(tilts[k])))
     plan.order = rng.permutation(n)
     among = int(mix.get("judged_among", n))
     plan.judged = {int(i) for i in rng.choice(among, size=min(int(mix["judged"]), among), replace=False)}

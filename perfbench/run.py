@@ -5,7 +5,10 @@
 
 From the root of a checkout that holds the program. A cell (``BENCHMARK.json``
 ``workloads``) names a configuration (``perfbench/configs/<name>.json``) and a
-traffic mix (``perfbench/traffic/<name>.json``); its limits of correctness are
+traffic mix (``perfbench/traffic/<name>.json``); the configuration's model
+family (``perfbench/families/<name>.py``) gives the served file, the engine's
+options, the warm-up shapes, the scenarios' LR rasters, the work a job and the
+judge; the cell's limits of correctness are
 ``perfbench/limits/<cell>.json``; each metric is read by
 ``perfbench/metrics/<metric>.py``; a mix's loop and front are
 ``perfbench/loops/<loop>.py`` and ``perfbench/fronts/<front>.py``.
@@ -19,8 +22,8 @@ window: the mix's loop sends machine-interface payloads through its front
 (in a closed loop the call running then completes and closes the window). With
 ``--trace 1`` the window runs under ``torch.profiler``. After the window: the
 peak device memory is read, the service closed, and a sample of the window's
-outputs, drawn from the seed, is worked out again by the plain reference
-(``perfbench/reference/``) and compared.
+outputs, drawn from the seed, is judged by the family (the ResUNet's: worked
+out again by the plain reference, ``perfbench/reference/``, and compared).
 
 The last stdout line is one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1``
@@ -44,6 +47,7 @@ import os  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 import traceback  # noqa: E402
+from functools import partial  # noqa: E402
 from pathlib import Path  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
@@ -99,39 +103,36 @@ def run_cell(entry: dict, cfg: dict, mix: dict, limits: dict, *, seed: int, seco
              trace: bool, device: str = "cuda", control: bool = False) -> dict:
     """One run of a cell; returns the result object (``checks`` last).
 
-    ``control`` puts the reference computed with TF32 in the program's place
-    for the judged outputs (the comparison must then fail).
+    ``control`` puts the family's control in the program's place for the
+    judged outputs (the comparison must then fail): for the ResUNet, the
+    reference computed with TF32.
     """
     import torch
 
-    from perfbench.harness import spec, traffic, weights, work
+    from perfbench.harness import spec, traffic
     from perfbench.harness.trace import span, traced
 
     cuda = device.startswith("cuda")
-    pre = cfg["preprocess"]
+    family = spec.family(cfg)
     with tempfile.TemporaryDirectory(prefix="perfbench-") as tmp:
         workdir = Path(tmp)
         t0 = time.perf_counter()
-        plan = traffic.build(mix, seed, workdir, float(pre["max_depth"]))
-        artifact = weights.artifact_for(cfg, workdir, device)
+        plan = traffic.build(mix, seed, workdir, partial(family.lr_raster, cfg))
+        artifact = family.artifact(cfg, workdir, device)
         gen_s = time.perf_counter() - t0
         log(f"# inputs: {len(plan.areas)} areas, {len(plan.scenarios)} scenarios, "
             f"{plan.bytes_written} bytes written, {gen_s:.3f} s (not set-up)")
 
         from floodsr_tpu_torch.serve import TohrService
 
-        policy = cfg["policy"]
         service = TohrService(
             model_version=cfg["model_version"], model_fp=artifact, device=device,
-            engine_options={"compute_dtype": policy["compute_dtype"],
-                            "max_batch": int(policy["max_batch"])},
+            engine_options=family.service_options(cfg),
         )
         front = spec.module("fronts", mix["front"])
         loop = spec.module("loops", mix["loop"])
         handle = front.handler(service)
         jpc = plan.jobs_per_call
-        arch = cfg["architecture"]
-        lr_shape = plan.geometry["lr_shape"]
         failures = []
 
         def call(index: int, warmup: bool = False) -> dict:
@@ -151,7 +152,7 @@ def run_cell(entry: dict, cfg: dict, mix: dict, limits: dict, *, seed: int, seco
             log(f"# set-up: imports and CUDA context done at {process_age_s() - gen_s:.3f} s")
             service.start()
             log(f"# set-up: service started at {process_age_s() - gen_s:.3f} s")
-            service.warmup([(lr_shape[0] * arch["scale"], lr_shape[1] * arch["scale"])])
+            service.warmup(family.warmup_shapes(cfg, plan))
             log(f"# set-up: geometry warmed at {process_age_s() - gen_s:.3f} s")
             for w in range(int(mix.get("warmup_calls", 1))):
                 c = call(w * jpc, warmup=True)
@@ -205,14 +206,13 @@ def run_cell(entry: dict, cfg: dict, mix: dict, limits: dict, *, seed: int, seco
         log("# mean stage s: " + " ".join(f"{k}={sum(v) / len(v):.4f}" for k, v in stages.items()))
 
         t_ref = time.perf_counter()
-        checks = judge(cfg, plan, done, limits, device, control)
+        checks = family.judge(cfg, plan, done, limits, device, control)
         log(f"# reference: {checks['judged']['value']} outputs, {time.perf_counter() - t_ref:.3f} s")
         checks["failed"] = {"value": len(failures), "limit": 0}
 
     run = SimpleNamespace(
         calls=calls, jobs=done, window_s=window_s, setup_s=setup_s, trace=trace_out or None,
-        cfg=cfg, mix=mix, arch=arch, entry=entry, geometry=plan.geometry,
-        windows_per_job=work.n_windows(arch, lr_shape),
+        cfg=cfg, mix=mix, entry=entry, geometry=plan.geometry, **family.per_job(cfg, plan),
     )
     metrics = {}
     for m in spec.metrics_of(entry["name"], "per_layer" if trace else "end_to_end"):
@@ -236,65 +236,6 @@ def run_cell(entry: dict, cfg: dict, mix: dict, limits: dict, *, seed: int, seco
     result["device"] = dev
     result["checks"] = checks
     return result
-
-
-def _tf32(on: bool) -> None:
-    import torch
-
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
-
-
-def judge(cfg: dict, plan, done: list, limits: dict, device: str, control: bool) -> dict:
-    """Work the judged outputs out again with the reference; the worst gaps.
-
-    The reference runs in float32 with TF32 off. ``control``: the reference
-    with TF32 on stands in for the program's raster.
-    """
-    import numpy as np
-
-    from perfbench.reference.artifact import read_artifact
-    from perfbench.reference.model import Reference
-    from perfbench.reference.pipeline import run_request
-    from perfbench.reference.tiff import read_geotiff
-
-    judged = [(j, r) for j, r in done if j.judged] or done[:1]
-    worst = {"rmse_m": 0.0, "max_abs_m": 0.0, "georef": 0}
-    g = plan.geometry
-    if judged:
-        arch, arrays = read_artifact(Path(judged[0][1]["model_fp"]))
-        model = Reference(arch, arrays, device)
-        for job, _ in judged:
-            sc = plan.scenarios[job.scenario]
-            inputs = (model, plan.areas[sc.area].dem, sc.depth, g, cfg)
-            _tf32(False)
-            ref = run_request(*inputs)
-            if control:
-                _tf32(True)
-                out = run_request(*inputs)
-                _tf32(False)
-                prof = {"height": out.shape[0], "width": out.shape[1], "west": g["west"],
-                        "north": g["north"], "res_x": g["hr_res"], "res_y": g["hr_res"]}
-            else:
-                out, prof = read_geotiff(job.out_path)
-            if (prof["height"], prof["width"]) != ref.shape or any(
-                abs(prof[k] - g[v]) > 1e-6
-                for k, v in (("west", "west"), ("north", "north"), ("res_x", "hr_res"), ("res_y", "hr_res"))
-            ):
-                worst["georef"] += 1
-                continue
-            d = out.astype(np.float64) - ref.astype(np.float64)
-            rmse, mx = float(np.sqrt(np.mean(d * d))), float(np.abs(d).max())
-            log(f"# judged job {job.index} (scenario {job.scenario}): rmse {rmse:.6e} m, max {mx:.6e} m")
-            worst["rmse_m"] = max(worst["rmse_m"], rmse)
-            worst["max_abs_m"] = max(worst["max_abs_m"], mx)
-        del model
-    return {
-        "judged": {"value": len(judged), "limit": 1},
-        "rmse_m": {"value": worst["rmse_m"], "limit": float(limits["rmse_m"])},
-        "max_abs_m": {"value": worst["max_abs_m"], "limit": float(limits["max_abs_m"])},
-        "georef": {"value": worst["georef"], "limit": 0},
-    }
 
 
 def main(argv=None) -> int:

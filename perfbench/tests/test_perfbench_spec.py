@@ -48,6 +48,17 @@ def test_a_missing_file_is_named():
         spec.module("loops", "open")
 
 
+def test_a_configuration_without_family_is_a_resunet():
+    cfg = spec.config("resunet16x_flagship")
+    assert "family" not in cfg
+    assert spec.family(cfg).__file__ == str(spec.BENCH_DIR / "families" / "resunet.py")
+
+
+def test_an_unknown_family_is_named():
+    with pytest.raises(KeyError, match="families/costgrow_x.py"):
+        spec.family({"family": "costgrow_x"})
+
+
 def test_names_units_and_keys(bench):
     names = [c["name"] for c in bench["configs"]] + [w["name"] for w in bench["workloads"]]
     names += [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
