@@ -48,6 +48,7 @@ from floodsr_tpu_torch.ops.costgrow import (
     keep_components_connected_to_anchor,
     mcp_fill,
     nearest_fill_numpy,
+    traced_solve,
 )
 from floodsr_tpu_torch.ops.resample import reproject_bilinear_auto
 
@@ -92,13 +93,14 @@ def _costgrow_pcraster_phases(
     # minimum-cost source over the friction surface.
     cost_valid = torch.isfinite(cost_fine)
     domain = dem_valid & cost_valid
-    filled, _ = mcp_fill(
-        torch.where(anchor_mask, wse_wet, math.nan),
-        anchor_mask,
-        torch.where(cost_valid, cost_fine, math.inf),
-        domain,
-        stats=solves.setdefault("spreadzone_fill", {}),
-    )
+    with traced_solve("spreadzone_fill", solves) as stats:
+        filled, _ = mcp_fill(
+            torch.where(anchor_mask, wse_wet, math.nan),
+            anchor_mask,
+            torch.where(cost_valid, cost_fine, math.inf),
+            domain,
+            stats=stats,
+        )
 
     # 03c: linear decay with grid distance, grown zone only (anchors keep
     # their exact WSE — notebook ``decay_zone_bar = wse2.isnull()``).
@@ -117,7 +119,8 @@ def _costgrow_pcraster_phases(
     # 04: drop wet blobs disconnected from the anchors (orthogonal
     # adjacency — the notebook's ``label(..., connectivity=1)``).
     wet_post = torch.isfinite(out)
-    keep = keep_components_connected_to_anchor(wet_post, anchor_mask)
+    with traced_solve("components"):
+        keep = keep_components_connected_to_anchor(wet_post, anchor_mask)
     return torch.where(keep & dem_valid, out, math.nan)
 
 

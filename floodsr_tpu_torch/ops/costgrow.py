@@ -22,6 +22,9 @@ oracle (exact same edge-weight convention).
 PyTorch runs eagerly, so every convergence check is a device-to-host read;
 ``relaxations_per_check`` relaxations run between two checks. Relaxations at
 a fixpoint change nothing, so the results do not depend on it.
+
+:func:`traced_solve` makes one solve a span of the open request
+(:mod:`floodsr_tpu_torch.tracing`), with its counts as the span's counters.
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ from __future__ import annotations
 import heapq
 import math
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+import floodsr_tpu_torch.ops.kernels.relax_step as k3
+from floodsr_tpu_torch import tracing
 from floodsr_tpu_torch.ops.kernels.relax_step import relax_step, shifted_views
 
 _SQRT2 = math.sqrt(2.0)
@@ -103,6 +109,26 @@ def mcp_fill(
             relaxations=it, checks=checks, seconds=time.perf_counter() - t0
         )
     return filled, dist
+
+
+@contextmanager
+def traced_solve(name: str, solves: dict | None = None):
+    """Span ``solve.<name>`` around one solve.
+
+    A least-cost solve passes the ``solves`` dict of its caller and gets the
+    entry ``solves[name]`` to fill as its ``stats``; the span then carries its
+    ``relaxations`` and ``checks`` and the K3 launches made while it was open
+    (``k3_launches``, a difference of the process-wide ``relax_step.launches``:
+    the caller runs one solve at a time). Without ``solves`` it yields None.
+    """
+    stats = None if solves is None else solves.setdefault(name, {})
+    launches = k3.launches
+    with tracing.span(f"solve.{name}") as s:
+        yield stats
+    if stats is not None:
+        s.add("relaxations", stats["relaxations"])
+        s.add("checks", stats["checks"])
+        s.add("k3_launches", k3.launches - launches)
 
 
 def mcp_distance(
