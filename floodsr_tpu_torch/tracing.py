@@ -1,8 +1,9 @@
 """Request-scoped spans: the one timing mechanism of the ToHR path.
 
 A request's record (:class:`Trace`) holds its integer id, its spans and their
-counters (:meth:`Span.add`). A span is ``[name, parent_index, t0_ns, t1_ns]`` (``parent_index``
--1 at the root, ``t1_ns`` 0 while open), stamped with :func:`time.time_ns`,
+counters (:meth:`Span.add`; :func:`count` adds to the innermost open span). A
+span is ``[name, parent_index, t0_ns, t1_ns]`` (``parent_index`` -1 at the
+root, ``t1_ns`` 0 while open), stamped with :func:`time.time_ns`,
 the clock of ``torch.profiler``'s host events, so that a span and the device
 trace around it line up. :func:`request` opens a record in the current
 :mod:`contextvars` context, or joins the one already open there; :func:`span`
@@ -135,6 +136,14 @@ def current() -> Trace | None:
     """The record of the request open in this context, or None."""
     cur = _current.get()
     return cur[0] if cur is not None else None
+
+
+def count(name: str, value: float = 1) -> None:
+    """Add ``value`` to counter ``name`` of the innermost span open in this
+    context; nothing with no request open."""
+    cur = _current.get()
+    if cur is not None and cur[0] is not None and cur[1] is not None:
+        cur[1].add(name, value)
 
 
 @contextmanager

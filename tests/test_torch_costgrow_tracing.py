@@ -181,3 +181,16 @@ def test_the_served_raster_is_the_libraries(served):
     for name, stats in served["CostGrow"]["solves"].items():
         bare = served["bare"]["solves"][name]
         assert (stats["relaxations"], stats["checks"]) == (bare["relaxations"], bare["checks"])
+
+
+def test_the_resample_span_counts_two_separable_warps(tmp_path):
+    """Phase 01 between the scene's axis-aligned grids: the WSE warp and the
+    validity mask each from the 1-D sample plan, none from full grids."""
+    dem, wse = _scene(tmp_path, 11)
+    params = tmp_path / "CostGrow.json"
+    params.write_text(json.dumps({"model_version": "CostGrow"}))
+    with tracing.request() as trace, tracing.span("root"):
+        tohr(model_version="CostGrow", model_fp=params, depth_lr_fp=wse, dem_hr_fp=dem,
+             output_fp=tmp_path / "out.tif", device="cpu")
+    (resample,) = [s for s in trace.spans if s.name == "costgrow.resample"]
+    assert resample.counters == {"resample.separable": 2.0}
