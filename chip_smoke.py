@@ -122,8 +122,9 @@ Phases (any failure raises and exits non-zero; none is caught):
 16. finish — one 4096² scene whose DEM is a 3840² raster over the same extent,
     so the output is resampled onto the DEM's grid: ``output_transfer="uint12"``
     against ``"float32"`` (within ``max_depth / 4095``), and the device
-    postprocess against the host resampler (``FLOODSR_DEVICE_POSTPROC=0``),
-    with the finish stage's seconds each way;
+    postprocess against the host plan (the model-grid scene, then
+    ``separable_resample_np`` → clip → low-depth mask, the engine's host
+    finish under a mesh), with the device finish's stage seconds;
 17. onnx — the tf2onnx-idiom replica of the released graph
     (``tests/onnx_replica.py``, 12.2 M parameters, 32² → 512² tiles) written
     to a temporary ``.onnx``: interpreter, converted graph and the replica's
@@ -1049,21 +1050,6 @@ def phase_tohr_cases(torch) -> None:
                     )
 
 
-class _StageLog(logging.Handler):
-    """Collects the CostGrow worker's ``stage timings: name=secondss`` debug lines."""
-
-    def __init__(self):
-        super().__init__(logging.DEBUG)
-        self.stages: dict[str, float] = {}
-
-    def emit(self, record):
-        msg = record.getMessage()
-        if msg.startswith("stage timings:"):
-            for item in msg.split(":", 1)[1].split():
-                key, _, value = item.partition("=")
-                self.stages[key] = float(value.rstrip("s"))
-
-
 def run_stages(diag: dict) -> dict[str, float]:
     """Seconds of each span directly under ``worker.run`` in a ``tohr``
     run's record (``scene_timings["trace"]``), summed by name."""
@@ -1534,11 +1520,9 @@ def phase_costgrow_scene(torch, seed: int, size: int, with_profile: bool = False
     from floodsr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from floodsr_tpu_torch.tohr import tohr
 
-    stage_log = _StageLog()
     logger = logging.getLogger("chip_smoke.costgrow")
-    logger.setLevel(logging.DEBUG)
     logger.propagate = False
-    logger.addHandler(stage_log)
+    logger.addHandler(logging.NullHandler())
     results = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-costgrow-") as tmp:
         tmp = Path(tmp)
@@ -1554,7 +1538,6 @@ def phase_costgrow_scene(torch, seed: int, size: int, with_profile: bool = False
             )
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            stage_log.stages.clear()
             reset_launch_counts()
             t0 = time.perf_counter()
             diag = tohr(**kw)
@@ -1575,7 +1558,7 @@ def phase_costgrow_scene(torch, seed: int, size: int, with_profile: bool = False
                 f"wet {int(wet.sum())} cells, peak allocated {peak / 2**20:.1f} MiB"
             )
             log(f"[costgrow] {version} solves {json.dumps(solves)}")
-            log(f"[costgrow] {version} worker stages (s) {json.dumps(stage_log.stages)}")
+            log(f"[costgrow] {version} worker stages (s) {json.dumps(run_stages(diag))}")
             assert out.shape == (size, size), out.shape
             assert pre["downscale"] == scene["scale"], pre["downscale"]
             assert pre["wet_pixel_count"] == int(wet.sum()) > 0
@@ -2625,22 +2608,47 @@ def policies_card_vs_cpu(tmp: Path) -> None:
     log(f"[policies] {case_dir.name}, the card against device='cpu' {json.dumps(report)}")
 
 
+@contextlib.contextmanager
+def host_plan_finish():
+    """Inside, the engine stops at the model grid (no post-resample, no
+    low-depth mask) and the scene goes onto the DEM's grid by the host plan,
+    ``separable_resample_np`` → clip → low-depth mask: the engine's host
+    finish under a mesh. The sink gets the rows in bands."""
+    from floodsr_tpu_torch.engine import EngineTorch
+    from floodsr_tpu_torch.ops.resample import separable_resample_np
+
+    real = EngineTorch.run_scene
+
+    def run_scene(self, *args, post_resample=None, low_depth_mask_m=1e-3, sink=None, **kw):
+        scene, stats = real(self, *args, low_depth_mask_m=0.0, **kw)
+        dst_shape, src_t, dst_t = post_resample
+        out = separable_resample_np(scene, src_t, dst_shape, dst_t)
+        out = np.clip(out, 0.0, kw["max_depth"])
+        out = np.where(out < low_depth_mask_m, 0.0, out).astype(np.float32)
+        for r in range(0, out.shape[0], 512):
+            sink.write_rows(out[r : r + 512])
+        return out, stats
+
+    EngineTorch.run_scene = run_scene
+    try:
+        yield
+    finally:
+        EngineTorch.run_scene = real
+
+
 def phase_finish(torch, seed: int, size: int, tmp: Path) -> None:
     """``uint12`` and the device postprocess on a scene resampled onto its DEM's grid."""
     dem_size = size * 15 // 16  # 3840 of 4096: the DEM's cell is 16/15 of the model's
     dem_fp, depth_fp = scene_inputs(tmp, seed + 300, size, tag="_finish", dem_size=dem_size)
 
     def run(transfer: str, device_post: bool, warm: bool = False) -> dict:
-        os.environ["FLOODSR_DEVICE_POSTPROC"] = "1" if device_post else "0"
-        try:
+        with contextlib.nullcontext() if device_post else host_plan_finish():
             return timed_tohr(
                 torch, warm=warm, model_version="ResUNet_16x_DEM", model_fp=FLAGSHIP,
                 depth_lr_fp=depth_fp, dem_hr_fp=dem_fp, device="cuda",
                 output_fp=tmp / f"finish_{transfer}_{int(device_post)}.tif",
                 engine_options={"output_transfer": transfer},
             )
-        finally:
-            os.environ.pop("FLOODSR_DEVICE_POSTPROC", None)
 
     runs = {
         ("uint16", True): run("uint16", True, warm=True),
@@ -2666,7 +2674,7 @@ def phase_finish(torch, seed: int, size: int, tmp: Path) -> None:
     err12 = float(np.abs(runs[("uint12", True)]["pred"] - ref).max())
     if not err12 <= step12 + 1e-6:  # f32 rounding of the step itself
         raise AssertionError(f"uint12 vs float32: max |diff| {err12} > max_depth/4095 = {step12}")
-    # device postprocess against the host resampler, the switch off
+    # device postprocess against the host plan
     # (uint12: a 12-bit code taken before the lerp on one side and after it on
     # the other, so up to two of its steps)
     gates = {"float32": 1e-5, "uint16": step16 + 1e-5, "uint12": 2 * step12}
@@ -2678,20 +2686,22 @@ def phase_finish(torch, seed: int, size: int, tmp: Path) -> None:
         errs[transfer] = float(np.abs(dev - host)[both].max())
         if not (errs[transfer] <= gate and float(np.mean(both)) > 0.9999):
             raise AssertionError(
-                f"device postprocess vs host resampler ({transfer}): max |diff| {errs[transfer]} "
+                f"device postprocess vs host plan ({transfer}): max |diff| {errs[transfer]} "
                 f"> {gate}, or {float(np.mean(~both))} of the pixels masked on one side only"
             )
+    # the device finish's stages; the host plan's resample is outside the
+    # engine, so of those runs only the end to end
     report = {
-        f"{transfer}_{'device' if dev else 'host'}": {
+        f"{transfer}_device": {
             k: r["timings"][k]
             for k in ("finish_s", "device_post_s", "d2h_wait_s", "d2h_bytes", "host_dequant_s",
-                      "host_resample_s", "host_sink_s")
+                      "host_resample_s", "host_sink_s", "fused_strips")
         } | {"e2e_s": r["e2e_s"]}
-        for (transfer, dev), r in runs.items()
-    }
+        for (transfer, dev), r in runs.items() if dev
+    } | {f"{transfer}_host_plan": {"e2e_s": r["e2e_s"]} for (transfer, dev), r in runs.items() if not dev}
     log(
         f"[finish] {size}x{size} model grid onto a {dem_size}x{dem_size} DEM grid: max |uint12 - "
-        f"float32| {err12:.3e} m (step {step12:.3e}); device postprocess vs host resampler "
+        f"float32| {err12:.3e} m (step {step12:.3e}); device postprocess vs host plan "
         f"{json.dumps(errs)} (gates {json.dumps(gates)})"
     )
     log(f"[finish] stage seconds {json.dumps(report)}")

@@ -41,7 +41,6 @@ its own products only (exact for bf16 values) and puts the switches back.
 from __future__ import annotations
 
 import logging
-import os
 import time
 from pathlib import Path
 from typing import Any
@@ -66,7 +65,7 @@ from floodsr_tpu_torch.engine.scene_banded import (
     build_banded_scene_executor,
     pack_band_indices,
 )
-from floodsr_tpu_torch.io.tiff import codes_writer
+from floodsr_tpu_torch.io.tiff import StripStreamWriter
 from floodsr_tpu_torch.nn.checkpoint import load_artifact, params_from_jax
 from floodsr_tpu_torch.nn.resunet import ResUNet, ResUNetConfig, resolve_precision_policy
 from floodsr_tpu_torch.ops.normalize import (
@@ -78,9 +77,9 @@ from floodsr_tpu_torch.ops.normalize import (
     scale_depth_log1p,
 )
 from floodsr_tpu_torch.ops.resample import (
-    StreamingSeparableResampler,
     _axis_interp_indices,
     reproject_bilinear,
+    separable_resample_np,
 )
 from floodsr_tpu_torch.parallel.mesh import batch_sharding, gather_to, mesh_device
 from floodsr_tpu_torch.parallel.streaming import prefetch_to_device
@@ -438,7 +437,7 @@ class EngineTorch(EngineBase):
         crop_shape: tuple[int, int],
         post_resample=None,
         low_depth_mask_m: float = 1e-3,
-        row_sink=None,
+        sink=None,
         tile_lr: "int | None" = None,
     ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
         """Whole-scene execution: one upload, the scene executor, one download.
@@ -447,7 +446,10 @@ class EngineTorch(EngineBase):
         or tensors already on the device). The engine pads them to whole
         tiles, runs the executor over the window grid derived from
         ``stride_hr``, then finishes (:meth:`_finish_scene`).
-        ``row_sink(band)`` receives the finished rows top to bottom.
+        ``sink`` receives the finished scene: its rows top to bottom through
+        ``sink.write_rows(band)``, or, where it is a
+        :class:`~floodsr_tpu_torch.io.tiff.StripStreamWriter`, possibly the
+        downloaded codes at once (:meth:`_finish_scene`).
 
         Each stage is a span of the open request (:mod:`~floodsr_tpu_torch.tracing`):
         ``engine.plan``, ``engine.h2d``, ``engine.exec`` (the executor's call,
@@ -478,7 +480,7 @@ class EngineTorch(EngineBase):
                 stride_hr=stride_hr, overlap_hr=overlap_hr,
                 max_depth=max_depth, dem_pct_clip=dem_pct_clip,
                 crop_shape=(crop_h, crop_w), post_resample=post_resample,
-                low_depth_mask_m=low_depth_mask_m, row_sink=row_sink,
+                low_depth_mask_m=low_depth_mask_m, sink=sink,
                 tile_lr=tile_lr,
             )
         scale = self.scene_config(tile_lr).scale
@@ -506,7 +508,7 @@ class EngineTorch(EngineBase):
                     max_depth=float(max_depth),
                     post_resample=post_resample,
                     low_depth_mask_m=float(low_depth_mask_m),
-                    row_sink=row_sink,
+                    sink=sink,
                 )
             ex.add("device_s", clock.seconds(e0, e1, h2d, ex))
             self.last_scene_timings = self._scene_timings(trace, h2d, ex, fin, n)
@@ -666,7 +668,7 @@ class EngineTorch(EngineBase):
         crop_shape: tuple[int, int],
         post_resample=None,
         low_depth_mask_m: float = 1e-3,
-        row_sink=None,
+        sink=None,
         tile_lr: "int | None" = None,
     ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
         """Band-sharded scene execution for scenes beyond one device's memory.
@@ -745,7 +747,7 @@ class EngineTorch(EngineBase):
                     max_depth=float(max_depth),
                     post_resample=post_resample,
                     low_depth_mask_m=float(low_depth_mask_m),
-                    row_sink=row_sink,
+                    sink=sink,
                 )
             ex.add("device_s", clock.seconds(e0, e1, h2d, ex))
             self.last_scene_timings = self._scene_timings(trace, h2d, ex, fin, n)
@@ -763,115 +765,106 @@ class EngineTorch(EngineBase):
         max_depth: float,
         post_resample,
         low_depth_mask_m: float,
-        row_sink=None,
+        sink=None,
     ) -> np.ndarray:
         """One download of the finished scene: crop → dequant → resample → mask.
 
         Reference postprocess order (``floodsr/models/ResUNet_16x_DEM.py:
         554-583``): crop → clip (on the device) → resample → low-depth mask.
-        A rectilinear ``post_resample`` runs on the device
-        (:meth:`_postproc_on_device`: the download is then the raw DEM grid,
-        already clipped and masked) unless ``FLOODSR_DEVICE_POSTPROC=0``; then,
-        and for a general warp, the host resamples. With
-        ``output_transfer="uint12"`` the uint16 codes are reduced to 12 bits
-        and packed on the device (:meth:`_pack12`) and unpacked here
-        (:meth:`_unpack12`). Rows go to ``row_sink`` in bands as they are
-        finished, except where the device post-processed a ``uint16`` scene
-        and ``row_sink`` is a :class:`~floodsr_tpu_torch.io.tiff.StripStreamWriter`
-        that takes codes: there the codec threads dequantize each strip as
-        they encode it, in one pass over the scene
-        (:meth:`~floodsr_tpu_torch.io.tiff.StripStreamWriter.write_codes`; the
-        same values and file bytes), counted as ``fused_strips`` on the span
-        ``finish.sink``.
+        The finish's choices are made once, at the top, from what the engine
+        can observe; the device stage, the download and the host stage then
+        follow them:
+
+        - Where the resample runs. A rectilinear ``post_resample`` runs on the
+          device (:meth:`_postproc_on_device`: the download is then the raw
+          DEM grid, already clipped and masked) unless the engine has a mesh,
+          whose scene lives on its first device, as in the JAX package. There,
+          and for a general warp, the host resamples
+          (:func:`~floodsr_tpu_torch.ops.resample.separable_resample_np`,
+          :func:`~floodsr_tpu_torch.ops.resample.reproject_bilinear`), then
+          clips and masks.
+        - How the download is dequantized. ``uint12`` codes are reduced and
+          packed on the device (:meth:`_pack12`) and unpacked here
+          (:meth:`_unpack12`), ``uint16`` codes are scaled by
+          ``max_depth / 65535``, float32 is taken as it is.
+        - Whether the sink's codec threads dequantize. Where the device
+          post-processed a ``uint16`` scene and ``sink`` is a
+          :class:`~floodsr_tpu_torch.io.tiff.StripStreamWriter` that takes
+          codes, they dequantize each strip as they encode it, in one pass
+          over the scene (:meth:`~floodsr_tpu_torch.io.tiff.StripStreamWriter.write_codes`;
+          the same values and file bytes), counted as ``fused_strips`` on the
+          span ``finish.sink``. Any other sink gets the finished rows through
+          ``sink.write_rows`` in bands, top to bottom.
         """
         crop_h, crop_w = crop_shape
-        transfer12 = self.output_transfer == "uint12"
-        if transfer12:
-            dequant = float(max_depth) / 4095.0
-        elif self.output_transfer == "uint16":
-            dequant = float(max_depth) / 65535.0
-        else:
-            dequant = None
+        step = {"uint12": max_depth / 4095.0, "uint16": max_depth / 65535.0}.get(
+            self.output_transfer
+        )
+        device_post = host_warp = None
+        if post_resample is not None:
+            dst_shape, src_t, dst_t = post_resample
+            dst_shape = tuple(int(v) for v in dst_shape)
+            rectilinear = src_t.is_rectilinear() and dst_t.is_rectilinear()
+            if rectilinear and self.mesh is None:
+                device_post = dst_shape
+            else:
+                host_warp = separable_resample_np if rectilinear else reproject_bilinear
+        fused = (
+            device_post is not None
+            and self.output_transfer == "uint16"
+            and isinstance(sink, StripStreamWriter)
+            and sink.takes_codes(device_post)
+        )
 
         clock = tracing.StreamClock(self.device)
         with tracing.span("finish.device") as dev:
             f0 = clock.mark()
-            device_masked = False
-            host_resample = None
-            if post_resample is not None:
-                dst_shape, src_t, dst_t = post_resample
-                dst_shape = tuple(int(v) for v in dst_shape)
-                rectilinear = src_t.is_rectilinear() and dst_t.is_rectilinear()
-                # (under a mesh the host resamples, as in the JAX package)
-                if (
-                    rectilinear
-                    and os.environ.get("FLOODSR_DEVICE_POSTPROC", "1") == "1"
-                    and self.mesh is None
-                ):
-                    # Device-side postprocess: the index and weight plan is
-                    # _axis_interp_indices, the same the host resampler uses, so
-                    # values match to f32 lerp rounding plus one more quantization
-                    # round trip on the uint16 transfer (max_depth/65535/sqrt(12)
-                    # rmse). Afterwards the host must not clip and mask again: a
-                    # pixel the device kept could be zeroed by rounding near the
-                    # threshold.
-                    out = self._postproc_on_device(
-                        out, (crop_h, crop_w), dst_shape, src_t, dst_t,
-                        max_depth, low_depth_mask_m,
-                    )
-                    crop_h, crop_w = dst_shape
-                    device_masked = True
-                else:
-                    host_resample = (rectilinear, dst_shape, src_t, dst_t)
+            if device_post is not None:
+                # The index and weight plan is _axis_interp_indices, the one
+                # the host resample uses. The host must not clip and mask
+                # again: a pixel the device kept could be zeroed by rounding
+                # near the threshold.
+                out = self._postproc_on_device(
+                    out, (crop_h, crop_w), dst_shape, src_t, dst_t,
+                    max_depth, low_depth_mask_m,
+                )
+                crop_h, crop_w = dst_shape
             band = out[:crop_h, :crop_w]
-            if transfer12:
+            if self.output_transfer == "uint12":
                 band = self._pack12(band)
             _sync(self.device)
         with tracing.span("finish.d2h") as d2h:
             host = band.cpu().numpy()
             f1 = clock.mark()
             d2h.add("d2h_bytes", int(host.nbytes))
-        writer = (
-            codes_writer(row_sink, host.shape)
-            if device_masked and host.dtype == np.uint16
-            else None
-        )
         with tracing.span("finish.host"):
             with tracing.span("finish.dequant"):
-                if writer is not None:
+                if fused:
                     scene = np.empty(host.shape, np.float32)  # filled by the sink's pass
-                elif transfer12:
-                    scene = self._unpack12(host, crop_w, dequant)
-                elif dequant is not None:
+                elif self.output_transfer == "uint12":
+                    scene = self._unpack12(host, crop_w, step)
+                elif step is not None:
                     scene = host.astype(np.float32)
-                    scene *= dequant  # in place: no second temporary
+                    scene *= step  # in place: no second temporary
                 else:
                     scene = np.asarray(host, np.float32)
 
             with tracing.span("finish.resample"):
-                if host_resample is not None:
-                    rectilinear, dst_shape, src_t, dst_t = host_resample
-                    if rectilinear:
-                        resampler = StreamingSeparableResampler(
-                            (crop_h, crop_w), src_t, dst_shape, dst_t
-                        )
-                        _, scene = resampler.feed(scene)
-                        assert resampler.complete, "separable resample did not cover all rows"
-                    else:
-                        scene = reproject_bilinear(scene, src_t, dst_shape, dst_t)
+                if host_warp is not None:
+                    scene = host_warp(scene, src_t, dst_shape, dst_t)
 
-            if device_masked:
+            if device_post is not None:
                 final = np.asarray(scene, np.float32)
             else:
                 scene = np.clip(scene, 0.0, max_depth)
                 final = np.where(scene < low_depth_mask_m, 0.0, scene).astype(np.float32)
-            with tracing.span("finish.sink") as sink:
-                if writer is not None:
-                    sink.add("fused_strips", writer.write_codes(host, dequant, final))
-                elif row_sink is not None:
+            with tracing.span("finish.sink") as written:
+                if fused:
+                    written.add("fused_strips", sink.write_codes(host, step, final))
+                elif sink is not None:
                     band_rows = 512
                     for r in range(0, final.shape[0], band_rows):
-                        row_sink(final[r : r + band_rows])
+                        sink.write_rows(final[r : r + band_rows])
         # The stream passed f1 before the download returned.
         d2h.add("device_s", clock.seconds(f0, f1, dev, d2h))
         return final

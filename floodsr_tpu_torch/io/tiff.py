@@ -1038,20 +1038,6 @@ def _serialize_ifd(
     return bytes(ifd), bytes(payloads)
 
 
-def codes_writer(row_sink, shape: tuple[int, ...]) -> "StripStreamWriter | None":
-    """The :class:`StripStreamWriter` whose own ``write_rows`` is ``row_sink``
-    (not a wrapper around it) when it can take a whole image of ``shape`` as
-    uint16 codes (:meth:`StripStreamWriter.write_codes`), else None."""
-    writer = getattr(row_sink, "__self__", None)
-    if (
-        isinstance(writer, StripStreamWriter)
-        and row_sink.__func__ is StripStreamWriter.write_rows
-        and writer.takes_codes(shape)
-    ):
-        return writer
-    return None
-
-
 class StripStreamWriter:
     """Incremental striped-TIFF writer: feed row bands, strips hit disk as
     they compress.

@@ -2,7 +2,7 @@
 
 Port of the JAX package's worker (``floodsr_tpu/models/ResUNet_16x_DEM.py``),
 itself at reference parity (``floodsr/models/ResUNet_16x_DEM.py:140-640``):
-prepared-raster alignment, pad-to-tile-multiple, hard/feather windowing with
+input alignment, pad-to-tile-multiple, hard/feather windowing with
 forced trailing-edge coverage, meter-domain clipping, optional bilinear
 post-resample back to the raw DEM grid, low-depth masking, bounds-asserted
 GeoTIFF write, and the same diagnostics dict keys.
@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import contextvars
 import logging
-import tempfile
 import threading
 from collections import OrderedDict
 from pathlib import Path
@@ -43,10 +42,33 @@ from floodsr_tpu_torch.models.base import Model
 from floodsr_tpu_torch.parallel.mesh import mesh_device
 from floodsr_tpu_torch.preprocessing import (
     _read_single_band_raster,
+    prepare_inputs,
     resolve_preprocess_config,
-    write_prepared_rasters,
 )
 from floodsr_tpu_torch.tiling import build_window_grid
+
+
+class _BuildingMaskSink:
+    """A sink that zeroes depths inside building footprints (``mask``, the
+    output grid's) as the rows go to ``writer``, counting the wet cells it
+    blocks.
+
+    It has ``write_rows`` only. Not being a
+    :class:`~floodsr_tpu_torch.io.tiff.StripStreamWriter`, it gets the
+    finished rows in bands, never the codes of the finish's one pass: the
+    file must hold the masked rows.
+    """
+
+    def __init__(self, writer, mask: np.ndarray):
+        self._writer, self._mask = writer, mask
+        self._row = 0
+        self.blocked_wet = 0
+
+    def write_rows(self, band: np.ndarray) -> None:
+        m = self._mask[self._row : self._row + band.shape[0]]
+        self.blocked_wet += int(((band > 0) & m).sum())
+        self._row += band.shape[0]
+        self._writer.write_rows(np.where(m, 0.0, band).astype(band.dtype, copy=False))
 
 
 class ModelWorker(Model):
@@ -312,7 +334,7 @@ class ModelWorker(Model):
         self,
         *,
         depth_lr_raw: np.ndarray,
-        dem_hr_raw: np.ndarray,
+        dem_hr_raw: torch.Tensor,
         depth_lr_profile: dict,
         dem_hr_profile: dict,
         preprocess_cfg: dict[str, object],
@@ -322,15 +344,16 @@ class ModelWorker(Model):
         window_method: str,
         overlap_lr: int,
         post_resample: tuple | None = None,
-        row_sink=None,
+        sink=None,
     ) -> tuple[np.ndarray, int, dict[str, float] | None]:
         """Fused tiled execution over prepared arrays → final meter-domain scene.
 
         The compute path (tile gather, normalization, forward, feather
-        mosaic) runs on the device (:meth:`EngineTorch.run_scene`); the
-        post-resample and low-depth mask finish on the host. Returns the finished
-        prediction, the number of unique tiles executed (the reference's
-        tile-cache size), and a DEM-stat summary.
+        mosaic) runs on the device (:meth:`EngineTorch.run_scene`), and so do
+        the post-resample and the low-depth mask unless the engine has a mesh
+        (:meth:`EngineTorch._finish_scene`); ``sink`` gets the finished rows.
+        Returns the finished prediction, the number of unique tiles executed
+        (the reference's tile-cache size), and a DEM-stat summary.
         """
         log = self.log
         assert self.engine is not None, "worker must be entered before running inference"
@@ -340,9 +363,7 @@ class ModelWorker(Model):
 
         assert depth_lr_raw.ndim == 2 and dem_hr_raw.ndim == 2
         assert np.isfinite(depth_lr_raw).all(), "aligned depth contains non-finite values"
-        if isinstance(dem_hr_raw, np.ndarray):
-            assert np.isfinite(dem_hr_raw).all(), "aligned DEM contains non-finite values"
-        # (device-resident DEMs were finite-checked by the aligner)
+        # (the device DEM was finite-checked before its upload)
 
         max_depth = float(preprocess_cfg["max_depth"])
         dem_pct_clip = float(preprocess_cfg["dem_pct_clip"])
@@ -397,7 +418,7 @@ class ModelWorker(Model):
             crop_shape=(crop_h, crop_w),
             post_resample=post_resample,
             low_depth_mask_m=float(self.low_depth_mask_m),
-            row_sink=row_sink,
+            sink=sink,
             tile_lr=model_lr_tile,
         )
 
@@ -606,176 +627,152 @@ class ModelWorker(Model):
             if overlap_lr < 0:
                 raise AssertionError(f"tile_overlap must be >= 0; got {overlap_lr}")
 
-            with tempfile.TemporaryDirectory(prefix="floodsr-prep-") as prepped_dir:
-                with tracing.span("worker.prepare"):
-                    prepped = write_prepared_rasters(
-                        depth_lr_fp=depth_lr_path,
-                        dem_hr_fp=dem_hr_path,
-                        scale=model_scale,
-                        out_dir=prepped_dir,
-                        logger=log,
-                        # Hot path: align in memory (no temp writes) and keep the
-                        # warped DEM on device for the fused scene executor.
-                        write_files=False,
-                        device_dem=True,
-                        input_kind=input_kind,
-                        device=self.device,
-                        preread={
-                            "depth": depth_lr_raw,
-                            "depth_nodata": depth_lr_raw_nodata,
-                            "depth_profile": depth_lr_raw_profile,
-                            "dem": dem_hr_dev,
-                            "dem_nodata": dem_hr_raw_nodata,
-                            "dem_profile": dem_hr_raw_profile,
-                        },
-                    )
+            with tracing.span("worker.prepare"):
+                prepped = prepare_inputs(
+                    depth_lr_raw, depth_lr_raw_nodata, depth_lr_raw_profile,
+                    dem_hr_dev, dem_hr_raw_nodata, dem_hr_raw_profile,
+                    scale=model_scale, input_kind=input_kind, device=self.device,
+                    logger=log,
+                )
+            log.info(
+                "preprocessing complete\n"
+                f"  scale={model_scale} (HR/LR ratio)\n"
+                f"  aligned depth shape={prepped['depth_lr_shape']} resampled={prepped['resampled']}\n"
+                f"  aligned dem shape={prepped['dem_hr_shape']} raw_dem_shape={prepped['dem_raw_shape']}\n"
+                f"  max_depth={float(preprocess_cfg['max_depth'])} "
+                f"dem_pct_clip={float(preprocess_cfg['dem_pct_clip'])}"
+            )
+
+            model_space_shape = tuple(prepped["dem_hr_shape"])
+            post_resampled = tuple(prepped["dem_raw_shape"]) != model_space_shape
+            post_spec = None
+            if post_resampled:
                 log.info(
-                    "preprocessing complete\n"
-                    f"  scale={model_scale} (HR/LR ratio)\n"
-                    f"  aligned depth shape={prepped['depth_lr_shape']} resampled={prepped['resampled']}\n"
-                    f"  aligned dem shape={prepped['dem_hr_shape']} raw_dem_shape={prepped['dem_raw_shape']}\n"
-                    f"  max_depth={float(preprocess_cfg['max_depth'])} "
-                    f"dem_pct_clip={float(preprocess_cfg['dem_pct_clip'])}"
+                    f"post-resampling model output from {model_space_shape} "
+                    f"to {tuple(prepped['dem_raw_shape'])} on raw DEM grid "
+                    "with bilinear interpolation."
+                )
+                post_spec = (
+                    tuple(prepped["dem_raw_shape"]),
+                    prepped["dem_profile"]["transform"],
+                    prepped["dem_raw_profile"]["transform"],
                 )
 
-                model_space_shape = tuple(prepped["dem_hr_shape"])
-                post_resampled = tuple(prepped["dem_raw_shape"]) != model_space_shape
-                post_spec = None
-                if post_resampled:
-                    log.info(
-                        f"post-resampling model output from {model_space_shape} "
-                        f"to {tuple(prepped['dem_raw_shape'])} on raw DEM grid "
-                        "with bilinear interpolation (on the host)."
-                    )
-                    post_spec = (
+            # Streaming write: the engine's finish hands the output GeoTIFF's
+            # writer the scene, which encodes and writes it strip by strip.
+            from floodsr_tpu_torch.io.geotiff import open_raster_stream
+
+            output_profile = dict(prepped["dem_raw_profile"])
+            output_profile.update(dtype="float32", count=1)
+            # The output compression is a fixed write profile (reference
+            # default: LZW), never inherited from the input DEM's tags.
+            output_profile["compress"] = (
+                None if output_compress == "none" else output_compress.upper()
+            )
+            output_profile.pop("predictor", None)
+
+            # Building blocking (reference's planned feature, its ADR-0016):
+            # zero depths inside footprints as the rows stream to disk, and
+            # apply the same mask to the in-memory prediction below. Loaded
+            # BEFORE the output stream opens: a bad buildings file must
+            # fail cleanly, not truncate/corrupt the requested output path.
+            with tracing.span("worker.open"):
+                building_mask = None
+                if buildings_fp is not None:
+                    from floodsr_tpu_torch.features import building_mask_for_grid
+
+                    building_mask = building_mask_for_grid(
+                        buildings_fp,
+                        output_profile["transform"],
                         tuple(prepped["dem_raw_shape"]),
-                        prepped["dem_profile"]["transform"],
-                        prepped["dem_raw_profile"]["transform"],
+                        crs=str(output_profile["crs"]),
+                        logger_=log,
                     )
 
-                # Streaming write: the output GeoTIFF's strips are encoded and
-                # written per row band WHILE later bands are still in flight from
-                # the device (run_scene's banded D2H → open_raster_stream).
-                from floodsr_tpu_torch.io.geotiff import open_raster_stream
-
-                output_profile = dict(prepped["dem_raw_profile"])
-                output_profile.update(dtype="float32", count=1)
-                # The output compression is a fixed write profile (reference
-                # default: LZW), never inherited from the input DEM's tags.
-                output_profile["compress"] = (
-                    None if output_compress == "none" else output_compress.upper()
+                stream_writer = open_raster_stream(out_path, output_profile)
+                sink = (
+                    stream_writer if building_mask is None
+                    else _BuildingMaskSink(stream_writer, building_mask)
                 )
-                output_profile.pop("predictor", None)
 
-                # Building blocking (reference's planned feature, its ADR-0016):
-                # zero depths inside footprints as the rows stream to disk, and
-                # apply the same mask to the in-memory prediction below. Loaded
-                # BEFORE the output stream opens: a bad buildings file must
-                # fail cleanly, not truncate/corrupt the requested output path.
-                with tracing.span("worker.open"):
-                    building_mask = None
-                    blocked_wet = {"cells": 0}
-                    if buildings_fp is not None:
-                        from floodsr_tpu_torch.features import building_mask_for_grid
-
-                        building_mask = building_mask_for_grid(
-                            buildings_fp,
-                            output_profile["transform"],
-                            tuple(prepped["dem_raw_shape"]),
-                            crs=str(output_profile["crs"]),
-                            logger_=log,
-                        )
-
-                    stream_writer = open_raster_stream(out_path, output_profile)
-                    row_sink = stream_writer.write_rows
-                    if building_mask is not None:
-                        row_cursor = {"row": 0}
-
-                        def row_sink(band, _w=stream_writer.write_rows):
-                            r0 = row_cursor["row"]
-                            m = building_mask[r0 : r0 + band.shape[0]]
-                            blocked_wet["cells"] += int(((band > 0) & m).sum())
-                            row_cursor["row"] = r0 + band.shape[0]
-                            _w(np.where(m, 0.0, band).astype(band.dtype, copy=False))
-
-                try:
-                    prediction_out_m, tile_cache_size, tile_dem_stats = (
-                        self._run_tiled_model_on_prepared(
-                            depth_lr_raw=prepped["depth_lr"],
-                            dem_hr_raw=prepped["dem_hr"],
-                            depth_lr_profile=prepped["depth_lr_profile"],
-                            dem_hr_profile=prepped["dem_profile"],
-                            preprocess_cfg=preprocess_cfg,
-                            model_lr_tile=model_lr_tile,
-                            model_scale=model_scale,
-                            # The RUN tile (== contract tile unless overridden).
-                            contract_hr_tile=model_lr_tile * model_scale,
-                            window_method=window_method,
-                            overlap_lr=overlap_lr,
-                            post_resample=post_spec,
-                            row_sink=row_sink,
-                        )
+            try:
+                prediction_out_m, tile_cache_size, tile_dem_stats = (
+                    self._run_tiled_model_on_prepared(
+                        depth_lr_raw=prepped["depth_lr"],
+                        dem_hr_raw=prepped["dem_hr"],
+                        depth_lr_profile=prepped["depth_lr_profile"],
+                        dem_hr_profile=prepped["dem_profile"],
+                        preprocess_cfg=preprocess_cfg,
+                        model_lr_tile=model_lr_tile,
+                        model_scale=model_scale,
+                        # The RUN tile (== contract tile unless overridden).
+                        contract_hr_tile=model_lr_tile * model_scale,
+                        window_method=window_method,
+                        overlap_lr=overlap_lr,
+                        post_resample=post_spec,
+                        sink=sink,
                     )
-                    with tracing.span("worker.check"):
-                        assert prediction_out_m.shape == tuple(prepped["dem_raw_shape"]), (
-                            f"prediction shape {prediction_out_m.shape} must match "
-                            f"raw DEM shape {prepped['dem_raw_shape']}"
-                        )
-                        if building_mask is not None:
-                            # Keep the in-memory prediction identical to the streamed
-                            # (masked) file contents.
-                            prediction_out_m = np.where(
-                                building_mask, 0.0, prediction_out_m
-                            ).astype(np.float32)
+                )
+                with tracing.span("worker.check"):
+                    assert prediction_out_m.shape == tuple(prepped["dem_raw_shape"]), (
+                        f"prediction shape {prediction_out_m.shape} must match "
+                        f"raw DEM shape {prepped['dem_raw_shape']}"
+                    )
+                    if building_mask is not None:
+                        # Keep the in-memory prediction identical to the streamed
+                        # (masked) file contents.
+                        prediction_out_m = np.where(
+                            building_mask, 0.0, prediction_out_m
+                        ).astype(np.float32)
 
-                        # The pipeline already clipped to [0, max_depth] and applied the
-                        # low-depth mask; a cheap range guard replaces host re-work.
-                        assert prediction_out_m.dtype == np.float32
-                        assert float(prediction_out_m.max(initial=0.0)) <= float(
-                            preprocess_cfg["max_depth"]
-                        ) + 1e-6, "postprocess failed to clip to max_depth"
+                    # The pipeline already clipped to [0, max_depth] and applied the
+                    # low-depth mask; a cheap range guard replaces host re-work.
+                    assert prediction_out_m.dtype == np.float32
+                    assert float(prediction_out_m.max(initial=0.0)) <= float(
+                        preprocess_cfg["max_depth"]
+                    ) + 1e-6, "postprocess failed to clip to max_depth"
 
-                        prepared_dem_bounds = raster_bounds(prepped["dem_raw_profile"])
-                        assert all(
-                            np.isclose(a, b, atol=1e-6, rtol=0.0)
-                            for a, b in zip(prepared_dem_bounds, depth_lr_bounds)
-                        ), (
-                            f"output profile bounds {prepared_dem_bounds} do not match "
-                            f"incoming low-res bounds {depth_lr_bounds}"
-                        )
+                    prepared_dem_bounds = raster_bounds(prepped["dem_raw_profile"])
+                    assert all(
+                        np.isclose(a, b, atol=1e-6, rtol=0.0)
+                        for a, b in zip(prepared_dem_bounds, depth_lr_bounds)
+                    ), (
+                        f"output profile bounds {prepared_dem_bounds} do not match "
+                        f"incoming low-res bounds {depth_lr_bounds}"
+                    )
 
-                    with tracing.span("worker.close"):
-                        stream_writer.close()
-                    out_written_fp = Path(out_path)
-                    from floodsr_tpu_torch.io.geotiff import read_raster_header
+                with tracing.span("worker.close"):
+                    stream_writer.close()
+                out_written_fp = Path(out_path)
+                from floodsr_tpu_torch.io.geotiff import read_raster_header
 
-                    with tracing.span("worker.verify"):
-                        written_profile = read_raster_header(out_written_fp)
-                        written_shape = (
-                            int(written_profile["height"]), int(written_profile["width"])
-                        )
-                        assert written_shape == tuple(prepped["dem_raw_shape"]), (
-                            f"written output shape {written_shape} must match raw DEM "
-                            f"shape {prepped['dem_raw_shape']}"
-                        )
-                        written_bounds = raster_bounds(written_profile)
-                        assert all(
-                            np.isclose(a, b, atol=1e-6, rtol=0.0)
-                            for a, b in zip(written_bounds, depth_lr_bounds)
-                        ), (
-                            f"written output bounds {written_bounds} must match incoming "
-                            f"low-res bounds {depth_lr_bounds}"
-                        )
-                except BaseException:
-                    # Cover the WHOLE produce-and-verify span (inference, range/
-                    # bounds asserts, stream close, written-file checks): any
-                    # failure must not leave a corrupt partial GeoTIFF at the
-                    # requested output path or leak the handle.
-                    try:
-                        stream_writer._handle.close()
-                    finally:
-                        Path(out_path).unlink(missing_ok=True)
-                    raise
+                with tracing.span("worker.verify"):
+                    written_profile = read_raster_header(out_written_fp)
+                    written_shape = (
+                        int(written_profile["height"]), int(written_profile["width"])
+                    )
+                    assert written_shape == tuple(prepped["dem_raw_shape"]), (
+                        f"written output shape {written_shape} must match raw DEM "
+                        f"shape {prepped['dem_raw_shape']}"
+                    )
+                    written_bounds = raster_bounds(written_profile)
+                    assert all(
+                        np.isclose(a, b, atol=1e-6, rtol=0.0)
+                        for a, b in zip(written_bounds, depth_lr_bounds)
+                    ), (
+                        f"written output bounds {written_bounds} must match incoming "
+                        f"low-res bounds {depth_lr_bounds}"
+                    )
+            except BaseException:
+                # Cover the WHOLE produce-and-verify span (inference, range/
+                # bounds asserts, stream close, written-file checks): any
+                # failure must not leave a corrupt partial GeoTIFF at the
+                # requested output path or leak the handle.
+                try:
+                    stream_writer._handle.close()
+                finally:
+                    Path(out_path).unlink(missing_ok=True)
+                raise
 
         out_file_size = int(out_written_fp.stat().st_size)
         log.info(
@@ -807,7 +804,7 @@ class ModelWorker(Model):
                 "window_method": window_method,
                 "input_kind": input_kind,
                 "building_blocked_wet_cells": (
-                    blocked_wet["cells"] if building_mask is not None else None
+                    sink.blocked_wet if building_mask is not None else None
                 ),
                 "tile_overlap_lr": overlap_lr,
                 "tile_size_lr": model_lr_tile,
@@ -825,16 +822,9 @@ class ModelWorker(Model):
                     "output_shape": [int(x) for x in prepped["dem_raw_shape"]],
                 },
                 "prepared_inputs": {
-                    "depth_lr_prepared_fp": (
-                        str(prepped["depth_lr_prepared_fp"])
-                        if prepped["depth_lr_prepared_fp"] is not None
-                        else None
-                    ),
-                    "dem_hr_prepared_fp": (
-                        str(prepped["dem_hr_prepared_fp"])
-                        if prepped["dem_hr_prepared_fp"] is not None
-                        else None
-                    ),
+                    # the reference's prepared-raster files; none is written
+                    "depth_lr_prepared_fp": None,
+                    "dem_hr_prepared_fp": None,
                     "prepped_depth_was_resampled": bool(prepped["resampled"]),
                     "prepped_dem_was_resampled": bool(prepped["resampled"]),
                     "post_sr_was_resampled": bool(post_resampled),

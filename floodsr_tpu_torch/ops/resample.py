@@ -163,11 +163,11 @@ def separable_resample_np(
 ) -> np.ndarray:
     """Host-side separable bilinear resample for rectilinear transforms.
 
-    Index/weight math identical to :func:`bilinear_axis_matrix` (so outputs
-    match the dense-matmul device path to float rounding), but applied as two
-    axis gathers + lerps — O(H·W), no dense matrices. Used for the
-    post-inference resample onto the raw DEM grid now that the scene
-    executable is bucket-shaped and geometry-agnostic.
+    The 1-D sample plan of :func:`_axis_interp_indices` (the one the engine's
+    device postprocess uses), applied as a row gather and lerp, then a column
+    gather and lerp, in float32: O(H·W), no dense matrices. The engine's
+    post-inference resample onto the raw DEM grid where the host resamples
+    (under a mesh).
     """
     if not (src_transform.is_rectilinear() and dst_transform.is_rectilinear()):
         raise ValueError("separable resampling requires rectilinear transforms")
@@ -182,86 +182,6 @@ def separable_resample_np(
     )
     rows = src[r0, :] * (1.0 - fr)[:, None] + src[r1, :] * fr[:, None]
     return rows[:, c0] * (1.0 - fc)[None, :] + rows[:, c1] * fc[None, :]
-
-
-class StreamingSeparableResampler:
-    """Row-streaming twin of :func:`separable_resample_np`.
-
-    Feed source row bands top to bottom; destination rows are emitted as soon
-    as both of their bracketing source rows exist — which lets the
-    post-inference resample (and downstream GeoTIFF strip writes) overlap the
-    device→host transfer of later bands. Emits exactly the same values as the
-    one-shot function (same index/weight plan).
-    """
-
-    def __init__(
-        self,
-        src_shape: tuple[int, int],
-        src_transform: Affine,
-        dst_shape: tuple[int, int],
-        dst_transform: Affine,
-    ):
-        self._r0, self._r1, fr = _axis_interp_indices(
-            src_shape[0], src_transform.f, src_transform.e,
-            dst_shape[0], dst_transform.f, dst_transform.e,
-        )
-        self._fr = fr[:, None]
-        self._c0, self._c1, fc = _axis_interp_indices(
-            src_shape[1], src_transform.c, src_transform.a,
-            dst_shape[1], dst_transform.c, dst_transform.a,
-        )
-        self._fc = fc[None, :]
-        # Required source row per dst row must be monotone for streaming.
-        need = np.maximum(self._r0, self._r1)
-        assert np.all(np.diff(need) >= 0), "dst rows must map monotonically"
-        self._need = need
-        # Earliest source row any dst row >= i still references (suffix min
-        # of the lower bracket): once dst rows before i are emitted, source
-        # rows below _lowmin[i] can never be read again and are dropped —
-        # retained rows stay O(band), not O(scene) (a 30k-row scene would
-        # otherwise re-vstack a growing multi-GB prefix on every band).
-        low = np.minimum(self._r0, self._r1)
-        self._lowmin = np.minimum.accumulate(low[::-1])[::-1]
-        self._dst_h = int(dst_shape[0])
-        self._src_rows: list[np.ndarray] = []
-        self._rows_have = 0  # total source rows fed so far (absolute)
-        self._base = 0       # absolute index of the first retained row
-        self._next_dst = 0
-
-    def feed(self, band: np.ndarray) -> tuple[int, np.ndarray]:
-        """Add source rows; returns ``(dst_start, dst_rows)`` now computable."""
-        self._src_rows.append(np.asarray(band, np.float32))
-        self._rows_have += band.shape[0]
-        start = self._next_dst
-        end = start
-        while end < self._dst_h and self._need[end] < self._rows_have:
-            end += 1
-        if end == start:
-            return start, np.empty((0, self._c0.shape[0]), np.float32)
-        if len(self._src_rows) > 1:
-            self._src_rows = [np.vstack(self._src_rows)]
-        src = self._src_rows[0]
-        r0 = self._r0[start:end] - self._base
-        r1 = self._r1[start:end] - self._base
-        fr = self._fr[start:end]
-        rows = src[r0] * (1.0 - fr) + src[r1] * fr
-        out = rows[:, self._c0] * (1.0 - self._fc) + rows[:, self._c1] * self._fc
-        self._next_dst = end
-        # Clamp to rows actually fed: the next dst row's lower bracket can
-        # lie beyond the stream position, and trimming past it would desync
-        # _base from the rows appended later.
-        keep_abs = min(
-            int(self._lowmin[end]) if end < self._dst_h else self._rows_have,
-            self._rows_have,
-        )
-        if keep_abs > self._base:
-            self._src_rows = [src[keep_abs - self._base :]]
-            self._base = keep_abs
-        return start, out
-
-    @property
-    def complete(self) -> bool:
-        return self._next_dst == self._dst_h
 
 
 def separable_resample_matrices(

@@ -198,15 +198,17 @@ def test_a_replica_per_distinct_device(tiny):
 
 def test_device_postprocess_stays_off_under_a_mesh(tiny, monkeypatch):
     """A rectilinear post-resample runs on the host under a mesh, as in the
-    JAX package, and gives the plain engine's host-resampled scene."""
+    JAX package, and gives the host plan applied to the plain engine's
+    model-grid scene (``tests/test_torch_finish.py``'s ``_host_plan``)."""
     from floodsr_tpu_torch.io.affine import Affine
 
+    from test_torch_finish import _host_plan
+
     post = ((200, 200), Affine(1.0, 0, 0, 0, -1.0, 256.0), Affine(1.28, 0, 0, 0, -1.28, 256.0))
-    monkeypatch.setenv("FLOODSR_DEVICE_POSTPROC", "0")
-    want, _ = _engine(tiny["fp"]).run_scene(
-        tiny["depth"], tiny["dem"], crop_shape=BUCKET, post_resample=post, **RUN
+    scene, _ = _engine(tiny["fp"]).run_scene(
+        tiny["depth"], tiny["dem"], crop_shape=BUCKET, low_depth_mask_m=0.0, **RUN
     )
-    monkeypatch.delenv("FLOODSR_DEVICE_POSTPROC")
+    want = _host_plan("torch", scene, post, RUN["max_depth"])
     eng = _engine(tiny["fp"], _cpus(4), "banded")
     monkeypatch.setattr(eng, "_postproc_on_device", None)
     got, _ = eng.run_scene(tiny["depth"], tiny["dem"], crop_shape=BUCKET, post_resample=post, **RUN)

@@ -4,7 +4,10 @@ The port on ``device="cpu"`` against the JAX package on the same numpy-seeded
 inputs. The 12-bit reduction and the pack are exact integer arithmetic, so
 they are held bit for bit; the device postprocess is f32 lerps, which XLA may
 contract into FMAs, so it is held to one uint16 code (``max_depth / 65535``)
-or 1e-5 m in float32. ``tests/test_torch_finish_engines.py`` holds the same
+or 1e-5 m in float32. The host path it is held against is the host plan
+applied here (:func:`_host_plan`): the scene on the model grid, then
+``separable_resample_np`` → clip → low-depth mask, as the engine's host
+finish does under a mesh. ``tests/test_torch_finish_engines.py`` holds the same
 stage against the JAX engine, through ``tohr`` and through the daemon.
 """
 
@@ -76,11 +79,13 @@ def _scene(seed=21):
     return depth, dem
 
 
-def _run(eng, crop=(64, 64), post_resample=None, sink=None):
+def _run(eng, crop=(64, 64), post_resample=None, low_depth_mask_m=1e-3, **sink):
+    """``eng``'s scene; ``sink=`` goes to the port's engine only."""
     depth, dem = _scene()
     out, _ = eng.run_scene(
         depth, dem, stride_hr=24, overlap_hr=8, max_depth=MAX_DEPTH, dem_pct_clip=95.0,
-        crop_shape=crop, post_resample=post_resample, row_sink=sink,
+        crop_shape=crop, post_resample=post_resample, low_depth_mask_m=low_depth_mask_m,
+        **sink,
     )
     return out
 
@@ -104,9 +109,15 @@ def test_engine_uint12_matches_the_jax_engine_and_float32(engines, crop):
     assert engines("torch", "uint12").last_scene_timings["d2h_bytes"] == crop[0] * 3 * ((crop[1] + 1) // 2)
 
 
+class _Bands(list):
+    """A sink that keeps the bands it is handed."""
+
+    write_rows = list.append
+
+
 def test_uint12_rows_reach_the_sink_and_tohr_writes_them(engines, tiny_model_fp, synthetic_tohr_tiles, tmp_path):
-    bands = []
-    out = _run(engines("torch", "uint12"), sink=bands.append)
+    bands = _Bands()
+    out = _run(engines("torch", "uint12"), sink=bands)
     np.testing.assert_array_equal(np.concatenate(bands), out)
     outs = {}
     for transfer in ("uint12", "float32"):
@@ -129,24 +140,40 @@ def _post_resample():
     return (60, 60), from_origin(0.0, 120.0, 1.875, 1.875), from_origin(0.0, 120.0, 2.0, 2.0)
 
 
-def _run_postproc(engines, monkeypatch, kind, enabled, transfer):
-    monkeypatch.setenv("FLOODSR_DEVICE_POSTPROC", "1" if enabled else "0")
+def _host_plan(kind, scene, post_resample, max_depth=MAX_DEPTH, low_depth_mask_m=1e-3):
+    """The host finish after the model grid, with ``kind``'s package's
+    resample: ``separable_resample_np`` → clip → low-depth mask. ``scene`` is
+    the model grid finished without a mask (``low_depth_mask_m=0``)."""
+    if kind == "jax":
+        from floodsr_tpu.ops.resample import separable_resample_np
+    else:
+        from floodsr_tpu_torch.ops.resample import separable_resample_np
+    dst_shape, src_t, dst_t = post_resample
+    out = np.clip(separable_resample_np(scene, src_t, dst_shape, dst_t), 0.0, max_depth)
+    return np.where(out < low_depth_mask_m, 0.0, out).astype(np.float32)
+
+
+def _run_postproc(engines, kind, on_device, transfer):
+    """The scene onto the raw grid: by the engine's device postprocess, or
+    by the host plan applied to the engine's model-grid scene."""
     post = _post_resample()
     if kind == "jax":
         from floodsr_tpu.io.affine import from_origin as from_origin_jax
 
         post = ((60, 60), from_origin_jax(0.0, 120.0, 1.875, 1.875),
                 from_origin_jax(0.0, 120.0, 2.0, 2.0))
-    return _run(engines(kind, transfer), post_resample=post)
+    if on_device:
+        return _run(engines(kind, transfer), post_resample=post)
+    return _host_plan(kind, _run(engines(kind, transfer), low_depth_mask_m=0.0), post)
 
 
 @pytest.mark.parametrize("transfer,atol", [
     ("float32", 1e-5), ("uint16", 2 * MAX_DEPTH / 65535.0), ("uint12", 2 * MAX_DEPTH / 4095.0),
 ])
-def test_device_postproc_matches_host_resampler(engines, monkeypatch, transfer, atol):
-    dev = _run_postproc(engines, monkeypatch, "torch", True, transfer)
+def test_device_postproc_matches_host_resampler(engines, transfer, atol):
+    dev = _run_postproc(engines, "torch", True, transfer)
     timings = dict(engines("torch", transfer).last_scene_timings)
-    host = _run_postproc(engines, monkeypatch, "torch", False, transfer)
+    host = _run_postproc(engines, "torch", False, transfer)
     assert dev.shape == host.shape == (60, 60)
     # float32: f32 lerp rounding; quantized: one more quantization round trip
     np.testing.assert_allclose(dev, host, atol=atol, rtol=0)
@@ -157,8 +184,8 @@ def test_device_postproc_matches_host_resampler(engines, monkeypatch, transfer, 
     assert timings["host_resample_s"] < 1e-3 < 1.0 + timings["device_post_s"]
 
 
-def test_device_postproc_applies_low_depth_mask(engines, monkeypatch):
-    out = _run_postproc(engines, monkeypatch, "torch", True, "float32")
+def test_device_postproc_applies_low_depth_mask(engines):
+    out = _run_postproc(engines, "torch", True, "float32")
     tiny = (out > 0) & (out < 1e-3)
     assert not tiny.any()  # sub-threshold depths were zeroed on the device
     assert (out > 0).any() and float(out.max()) <= MAX_DEPTH
@@ -167,7 +194,6 @@ def test_device_postproc_applies_low_depth_mask(engines, monkeypatch):
 def test_device_postproc_is_not_masked_again_on_the_host(tiny_model_fp, monkeypatch):
     # After the device postprocess the host must not clip and mask again: a
     # value the device kept is returned as it was downloaded.
-    monkeypatch.setenv("FLOODSR_DEVICE_POSTPROC", "1")
     eng = EngineTorch(tiny_model_fp, output_transfer="float32", device="cpu")
     scene = torch.full((64, 64), 2.0)
     scene[8:16, 8:16] = 9.0  # above max_depth: the device clips it
@@ -187,7 +213,7 @@ def test_device_postproc_is_not_masked_again_on_the_host(tiny_model_fp, monkeypa
     )
     assert seen["max"] == MAX_DEPTH
     assert out[0, 0] == np.float32(5e-4)
-    # a general (non-rectilinear) warp stays on the host, switch or not
+    # a general (non-rectilinear) warp stays on the host
     from floodsr_tpu_torch.io.affine import Affine
 
     rot = Affine(1.4, 1.4, 0.0, 1.4, -1.4, 120.0)

@@ -1,7 +1,7 @@
 """The finish's one pass: uint16 codes dequantized inside the strip encode.
 
-Where the device post-processed a ``uint16`` scene and the row sink is a
-``StripStreamWriter``'s own ``write_rows``, the engine hands the writer the
+Where the device post-processed a ``uint16`` scene and the sink is a
+``StripStreamWriter`` that takes codes, the engine hands the writer the
 downloaded codes (``StripStreamWriter.write_codes``): the codec threads write
 ``float32(code) * float32(step)`` into the scene and encode each strip from it
 while the caller writes the strips already done. Held here against the band
@@ -16,10 +16,12 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
-from floodsr_tpu_torch.engine import torch_engine
+from floodsr_tpu_torch.engine import EngineTorch
 from floodsr_tpu_torch.io import native, read_raster
-from floodsr_tpu_torch.io.tiff import StripStreamWriter, codes_writer
+from floodsr_tpu_torch.io.tiff import StripStreamWriter
+from floodsr_tpu_torch.parallel.mesh import make_mesh
 from floodsr_tpu_torch.tohr import tohr as tohr_torch
 
 pytestmark = pytest.mark.unit
@@ -77,7 +79,7 @@ def test_write_codes_equals_the_band_path(tmp_path, monkeypatch, shape, kind, rp
         fp = tmp_path / f"pass_{threads}.tif"
         got = np.full(shape, np.nan, np.float32)
         with StripStreamWriter(fp, *shape, np.float32, rows_per_strip=rps) as w:
-            assert codes_writer(w.write_rows, shape) is w
+            assert w.takes_codes(shape)
             n = w.write_codes(codes, STEP, got)
             assert n == len(w._offsets) == -(-shape[0] // w._rps)
         assert fp.read_bytes() == want_bytes, threads
@@ -111,8 +113,15 @@ def _tohr(tiny_model_fp, tiles, fp, **kw):
     )
 
 
+class _RowsOnly:
+    """A sink with the writer's ``write_rows`` and nothing else."""
+
+    def __init__(self, writer):
+        self.write_rows = writer.write_rows
+
+
 @pytest.mark.parametrize("case", [
-    "pass", "uint12", "float32", "zstd", "buildings", "postproc_off",
+    "pass", "uint12", "float32", "zstd", "buildings", "mesh",
 ])
 def test_fused_strips_counts_the_pass_and_each_fallback_reads_0(
     case, tiny_model_fp, synthetic_nonnative_tiles, tmp_path, monkeypatch
@@ -126,8 +135,9 @@ def test_fused_strips_counts_the_pass_and_each_fallback_reads_0(
         kw["output_compress"] = "zstd"
     elif case == "buildings":
         kw["buildings_fp"] = _footprint(tmp_path)
-    elif case == "postproc_off":
-        monkeypatch.setenv("FLOODSR_DEVICE_POSTPROC", "0")
+    elif case == "mesh":
+        # the host resamples under a mesh
+        kw["engine_options"] = {"mesh": make_mesh(devices=[torch.device("cpu")] * 2)}
     diag = _tohr(tiny_model_fp, synthetic_nonnative_tiles, tmp_path / "out.tif", **kw)
     timings = diag["scene_timings"]
     assert timings["fused_strips"] == (2 if case == "pass" else 0)
@@ -135,7 +145,12 @@ def test_fused_strips_counts_the_pass_and_each_fallback_reads_0(
     if case == "pass":
         # the pass's file equals the band path's, byte for byte, and reads
         # back as the codes the device sent
-        monkeypatch.setattr(torch_engine, "codes_writer", lambda sink, shape: None)
+        real = EngineTorch.run_scene
+
+        def run_scene(self, *args, sink=None, **kw):
+            return real(self, *args, sink=_RowsOnly(sink), **kw)
+
+        monkeypatch.setattr(EngineTorch, "run_scene", run_scene)
         band = _tohr(tiny_model_fp, synthetic_nonnative_tiles, tmp_path / "band.tif")
         assert band["scene_timings"]["fused_strips"] == 0
         assert (tmp_path / "out.tif").read_bytes() == (tmp_path / "band.tif").read_bytes()

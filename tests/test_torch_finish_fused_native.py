@@ -24,7 +24,7 @@ import pytest
 from floodsr_tpu_torch.engine import EngineTorch
 from floodsr_tpu_torch.io import geotiff, native
 from floodsr_tpu_torch.io.affine import from_origin
-from floodsr_tpu_torch.io.tiff import StripStreamWriter, codes_writer
+from floodsr_tpu_torch.io.tiff import StripStreamWriter
 from floodsr_tpu_torch.tohr import tohr as tohr_torch
 
 pytestmark = pytest.mark.unit
@@ -174,7 +174,7 @@ def test_a_stale_library_whose_rebuild_fails_serves_the_band_path(stale_library,
     assert native.available()
     assert not native.dequant_encode_available() and not native.strips_available()
     writer = StripStreamWriter(tmp_path / "x.tif", 20, 50, np.float32)
-    assert codes_writer(writer.write_rows, (20, 50)) is None
+    assert not writer.takes_codes((20, 50))
     writer._handle.close()
 
 
@@ -236,7 +236,7 @@ def test_a_handle_that_fails_mid_scene_raises_and_leaves_no_thread(
         def run(sink):
             return eng.run_scene(
                 depth, dem, stride_hr=24, overlap_hr=8, max_depth=5.0,
-                dem_pct_clip=95.0, crop_shape=(64, 64), post_resample=post, row_sink=sink,
+                dem_pct_clip=95.0, crop_shape=(64, 64), post_resample=post, sink=sink,
             )
 
         run(None)  # the threads PyTorch keeps start here, not in the count
@@ -244,7 +244,7 @@ def test_a_handle_that_fails_mid_scene_raises_and_leaves_no_thread(
         writer._handle = _FailingHandle(writer._handle, fail_at=2)
         before = _threads()
         with pytest.raises(OSError, match="No space left"):
-            run(writer.write_rows)
+            run(writer)
         assert _threads() == before
         writer._handle.close()
         eng.close()
