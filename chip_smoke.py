@@ -52,7 +52,8 @@ Phases (any failure raises and exits non-zero; none is caught):
    ``torch.profiler``: device time by kernel and the device's idle share,
    from the kernel and copy events);
 7. relax_step (K3) against its plain torch version on the card, bit for bit
-   after 1 and after 64 relaxations, on a ``[4096, 4096]`` grid (costs in
+   after 1 and after 64 single relaxations and after each of 8 launches of 8
+   (with the flag), on a ``[4096, 4096]`` grid (costs in
    [1, 5] with ``inf`` walls, a few hundred seeds, one on the edge, two
    equidistant from the cells between them) and on ``[1000, 1537]``;
 8. ``mcp_fill`` on the card against the Dijkstra oracle on a 512² case;
@@ -1350,37 +1351,49 @@ def phase_relax_step(torch, rng) -> dict:
     err = 0.0
     for h, w in ((SCENE_SIZE, SCENE_SIZE), (1000, 1537)):
         dist, value, cost = (torch.from_numpy(a).cuda() for a in relax_grid(rng, h, w))
-        got, want = (dist, value), (dist, value)
+        want = single = fused = (dist, value)
         for step in range(1, 65):
-            got = rs.relax_step_cuda(*got, cost)
             want = rs.relax_step_reference(*want, cost)
+            single = rs.relax_step_cuda(*single, cost)[:2]
             if step in (1, 64):
                 torch.cuda.synchronize()
-                err = max(err, same_state(torch, got, want))
-        reached = int(torch.isfinite(got[0]).sum())
-        tie = got[0][24, 28].item()
+                err = max(err, same_state(torch, single, want))
+            if step % 8 == 0:
+                # one launch of 8 relaxations against the same 8 plain steps
+                before, (*fused, fell) = fused, rs.relax_step_cuda(*fused, cost, 8)
+                torch.cuda.synchronize()
+                err = max(err, same_state(torch, fused, want))
+                if bool(fell) != bool((fused[0] < before[0]).any()):
+                    raise AssertionError(f"relax_step: the flag {bool(fell)} after step {step}")
+        reached = int(torch.isfinite(want[0]).sum())
+        tie = want[0][24, 28].item()
         log(
-            f"[relax_step] [{h},{w}] bitwise equal to plain after 1 and 64 relaxations; "
-            f"{reached} cells reached, tie cell (24,28) dist {tie} value {got[1][24, 28].item()}"
+            f"[relax_step] [{h},{w}] bitwise equal to plain after 1 and 64 single relaxations "
+            f"and after each of 8 launches of 8; {reached} cells reached, tie cell (24,28) "
+            f"dist {tie} value {want[1][24, 28].item()}"
         )
         if (h, w) != (SCENE_SIZE, SCENE_SIZE):
             continue
         # Timed at the scene's size on the 64-step state; each call relaxes
         # the last one's result, as mcp_fill does.
-        state = {"cur": got}
+        state = {1: want, 8: want}
 
-        def step_kernel():
-            state["cur"] = rs.relax_step_cuda(*state["cur"], cost)
+        def launch(n):
+            state[n] = rs.relax_step_cuda(*state[n], cost, n)[:2]
 
-        ms = time_ms(torch, step_kernel, reps=50)
-        plain_ms = time_ms(torch, lambda: rs.relax_step_reference(*got, cost), reps=3, warmup=1)
-        # 3 arrays read, 2 written; per cell 8 candidates of 2 adds, 1
-        # multiply and 1 compare.
-        bound_ms, bound_by = bound(nbytes=5 * h * w * 4, nops=8 * 4 * h * w)
+        ms = time_ms(torch, lambda: launch(8), reps=50)
+        ms_single = time_ms(torch, lambda: launch(1), reps=50)
+        plain_ms = time_ms(torch, lambda: rs.relax_step_reference(*want, cost), reps=3, warmup=1)
+        # A launch reads 3 arrays and writes 2, whatever number of
+        # relaxations it makes; per cell and relaxation 8 candidates of 2
+        # adds, 1 multiply and 1 compare.
+        bound_ms, bound_by = bound(nbytes=5 * h * w * 4, nops=8 * 8 * 4 * h * w)
         log(
-            f"[relax_step] [{h},{w}] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {5 * h * w * 4 / (ms * 1e-3) / 1e9:.1f} GB/s "
-            f"of the bound's bytes; no library call computes this"
+            f"[relax_step] [{h},{w}] a launch of 8 relaxations {ms:.4f} ms "
+            f"({ms / 8:.4f} ms a relaxation), a launch of 1 {ms_single:.4f} ms, "
+            f"plain {plain_ms:.3f} ms a relaxation, bound of a launch {bound_ms:.4f} ms "
+            f"({bound_by}), {5 * h * w * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of the bound's bytes; "
+            f"no library call computes this"
         )
     return {
         "name": "relax_step",
@@ -1389,6 +1402,7 @@ def phase_relax_step(torch, rng) -> dict:
         "replaces": "floodsr_tpu/ops/pallas/costgrow_stencil.py:141",
         "max_abs_err": err,
         "ms": ms,
+        "ms_one_relaxation_launch": ms_single,
         "plain_ms": plain_ms,
         "library_ms": None,
         "bound_ms": bound_ms,
@@ -1434,7 +1448,7 @@ def phase_mcp_fill_oracle(torch, rng) -> None:
         f"Dijkstra oracle {oracle_s:.1f} s on the host; distances within rtol 1e-4, "
         f"filled values differ on {differs:.5%} of cells (ties)"
     )
-    if launches != stats["relaxations"] or launches <= 0:
+    if not launches == stats["k3_launches"] == stats["relaxations"] // 8 > 0:
         raise AssertionError(f"mcp_fill: {launches} launches for {stats['relaxations']} relaxations")
     if differs > 0.05:
         raise AssertionError(f"mcp_fill: {differs:.3%} of filled values differ from the oracle")
@@ -1566,7 +1580,7 @@ def phase_costgrow_scene(torch, seed: int, size: int, with_profile: bool = False
             assert not wet[scene["hole"]].any(), "a wet cell in the DEM's nodata hole"
             # The band under the WSE is wet, and growth went beyond it.
             assert wet.sum() > scene["band_rows"] * size
-            if counts["relax_step"] != relaxations or relaxations <= 0:
+            if not counts["relax_step"] == relaxations // 8 > 0:
                 raise AssertionError(
                     f"{version}: {counts['relax_step']} K3 launches for {relaxations} relaxations"
                 )
@@ -1945,7 +1959,7 @@ def phase_serve(torch, seed: int, size: int, tmp: Path, stream: dict) -> dict:
         if status != 200:
             raise AssertionError(f"serve: CostGrow request: {status} {answer}")
         relaxations = sum(s["relaxations"] for s in answer["solves"].values())
-        if k3 != relaxations or k3 <= 0:
+        if not k3 == relaxations // 8 > 0:
             raise AssertionError(f"serve: CostGrow request: {k3} K3 launches for {relaxations} relaxations")
     tohr(
         model_version="CostGrow", model_fp=params, depth_lr_fp=valley["wse"],

@@ -423,7 +423,7 @@ class ModelWorker(Model):
             "model_fp": str(self.model_fp),
             "output_size_bytes": out_size,
             # Each least-cost solve's relaxations, convergence checks (host
-            # syncs) and seconds.
+            # syncs), K3 launches and seconds.
             "solves": {k: dict(v) for k, v in self.last_solves.items()},
             # Each time is a span's; "trace" is the request's record, where
             # this run opened it.

@@ -20,8 +20,9 @@ leaves them to XLA. A sequential-Dijkstra numpy twin is the correctness
 oracle (exact same edge-weight convention).
 
 PyTorch runs eagerly, so every convergence check is a device-to-host read;
-``relaxations_per_check`` relaxations run between two checks. Relaxations at
-a fixpoint change nothing, so the results do not depend on it.
+``relaxations_per_check`` relaxations run between two checks, in one call of
+the kernel, which also says whether any distance fell. Relaxations at a
+fixpoint change nothing, so the results do not depend on it.
 
 :func:`traced_solve` makes one solve a span of the open request
 (:mod:`floodsr_tpu_torch.tracing`), with its counts as the span's counters.
@@ -69,7 +70,9 @@ def mcp_fill(
     All tensors lie on one device; CUDA tensors relax through the CUDA
     kernel, CPU tensors through its plain version. ``stats``, when given, is
     filled with the solve's ``relaxations``, ``checks`` (convergence checks,
-    each a device-to-host read) and ``seconds``.
+    each a device-to-host read), ``k3_launches`` (kernel launches, a
+    difference of the process-wide ``relax_step.launches``: one solve at a
+    time) and ``seconds``.
     """
     t0 = time.perf_counter()
     if relaxations_per_check < 1:
@@ -86,16 +89,14 @@ def mcp_fill(
     seed_values = seed_values.to(torch.float32)
     dist = torch.where(valid_seeds, 0.0, math.inf).contiguous()
     value = torch.where(valid_seeds, seed_values, math.nan).contiguous()
-    prev = torch.full_like(dist, math.inf)
+    launches = k3.launches
     it = checks = 0
+    fell = valid_seeds.any()  # the first check: is there a seed at all
     while True:
         checks += 1
-        changed = bool((dist < prev).any())  # device-to-host read
-        if not (changed and it < max_iters):
+        if not (bool(fell) and it < max_iters):  # device-to-host read
             break
-        prev = dist
-        for _ in range(relaxations_per_check):
-            dist, value = relax_step(dist, value, cost)
+        dist, value, fell = relax_step(dist, value, cost, relaxations_per_check)
         it += relaxations_per_check
 
     if target_mask is None:
@@ -106,7 +107,8 @@ def mcp_fill(
     filled = torch.where(fill_here, value, seed_values)
     if stats is not None:
         stats.update(
-            relaxations=it, checks=checks, seconds=time.perf_counter() - t0
+            relaxations=it, checks=checks, k3_launches=k3.launches - launches,
+            seconds=time.perf_counter() - t0,
         )
     return filled, dist
 
@@ -117,18 +119,15 @@ def traced_solve(name: str, solves: dict | None = None):
 
     A least-cost solve passes the ``solves`` dict of its caller and gets the
     entry ``solves[name]`` to fill as its ``stats``; the span then carries its
-    ``relaxations`` and ``checks`` and the K3 launches made while it was open
-    (``k3_launches``, a difference of the process-wide ``relax_step.launches``:
-    the caller runs one solve at a time). Without ``solves`` it yields None.
+    ``relaxations``, ``checks`` and ``k3_launches``. Without ``solves`` it
+    yields None.
     """
     stats = None if solves is None else solves.setdefault(name, {})
-    launches = k3.launches
     with tracing.span(f"solve.{name}") as s:
         yield stats
     if stats is not None:
-        s.add("relaxations", stats["relaxations"])
-        s.add("checks", stats["checks"])
-        s.add("k3_launches", k3.launches - launches)
+        for key in ("relaxations", "checks", "k3_launches"):
+            s.add(key, stats[key])
 
 
 def mcp_distance(

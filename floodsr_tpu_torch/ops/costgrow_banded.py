@@ -12,7 +12,7 @@ Why this is exact: after ``k`` relaxations, information travels at most
 ``k`` rows. Each outer block (a) refreshes a ``k``-row halo from the
 neighbouring bands' current state (one :func:`~floodsr_tpu_torch.parallel.
 mesh.ppermute` per direction), (b) relaxes ``k`` times on the halo-padded
-band through the ``relax_step`` kernel (its plain version on the CPU), (c)
+band in one call of the ``relax_step`` kernel (its plain version on the CPU), (c)
 crops back to the core rows. Core rows after a block equal the unsharded
 relaxation's rows after the same ``k`` steps; halo rows are scratch,
 re-fetched each block. Both fills are Jacobi steps with the same arithmetic
@@ -115,8 +115,7 @@ def build_banded_mcp_fill(
             dist_h = _exchange_halos(dist, k, math.inf)
             value_h = _exchange_halos(value, k, math.nan)
             for d in range(n_bands):
-                for _ in range(k):
-                    dist_h[d], value_h[d] = relax_step(dist_h[d], value_h[d], cost_h[d])
+                dist_h[d], value_h[d], _ = relax_step(dist_h[d], value_h[d], cost_h[d], k)
             new_dist = [t[k:-k] for t in dist_h]
             flags = [(new < old).any() for new, old in zip(new_dist, dist)]
             dist, value = new_dist, [t[k:-k] for t in value_h]

@@ -1,4 +1,4 @@
-"""One least-cost relaxation step: the ``relax_step`` CUDA kernel (K3).
+"""Least-cost relaxation steps: the ``relax_step`` CUDA kernel (K3).
 
 Replaces the TPU kernel ``floodsr_tpu/ops/pallas/costgrow_stencil.py::
 relax_step_pallas`` (pallas_call at :141). One 8-neighbour Bellman-Ford
@@ -9,11 +9,14 @@ its neighbour's value. Neighbours are tried in the TPU kernel's order (W, E,
 N, NW, NE, S, SW, SE), which decides whose value an exact tie keeps. The step
 is Jacobi: it reads the old arrays and writes new ones.
 
-Source: ``floodsr_tpu_torch/csrc/relax_step.cu`` (its header says what bounds
-it on the card and what its design does about that). :func:`relax_step`
-dispatches CPU tensors to :func:`relax_step_reference`, the same arithmetic in
-plain torch, which the kernel equals bit for bit (NaN payloads aside); CUDA
-tensors launch the kernel or raise.
+:func:`relax_step` makes ``n`` such steps and says whether any distance fell
+(distances never rise, so that is ``(dist' < dist).any()``). Source:
+``floodsr_tpu_torch/csrc/relax_step.cu``, up to :data:`MAX_PER_LAUNCH` steps
+a launch over shared-memory tiles (its header says what bounds it on the card
+and what its design does about that). CPU tensors go to
+:func:`relax_step_reference`, the same arithmetic in plain torch, which the
+kernel equals bit for bit (NaN payloads aside); CUDA tensors launch the kernel
+or raise.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ NEIGHBORS = (
 #: kernel launches since the last reset (ops.kernels.reset_launch_counts)
 launches = 0
 
-_MAX_ROWS = 65535 * 8  # gridDim.y limit times the tile's rows
+#: relaxations one launch makes at most: the halo of the kernel's tile
+MAX_PER_LAUNCH = 8
+
+_MAX_ROWS = 65535 * 24  # gridDim.y limit times the output rows of a tile
 _MAX_CELLS = 2**31 - 1
 
 
@@ -77,8 +83,9 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p,
         ]
     return fn
 
@@ -94,17 +101,25 @@ def _check_grid(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"relax_step expects contiguous tensors; {name} is not")
 
 
-def relax_step_cuda(
-    dist: torch.Tensor, value: torch.Tensor, cost: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``[H, W]`` f32 contiguous CUDA tensors.
+def _check_count(n: int) -> int:
+    if n < 1:
+        raise ValueError(f"relax_step: the number of relaxations must be >= 1; got {n}")
+    return int(n)
 
-    The step is not in place: it writes two new tensors and leaves its inputs
-    alone.
+
+def relax_step_cuda(
+    dist: torch.Tensor, value: torch.Tensor, cost: torch.Tensor, n: int = 1
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``n`` relaxations on ``[H, W]`` f32 contiguous CUDA tensors.
+
+    One launch per :data:`MAX_PER_LAUNCH` relaxations. Not in place: it writes
+    new tensors and leaves its inputs alone. Returns ``(dist', value', fell)``,
+    ``fell`` a 0-d bool tensor on the device, true if some distance fell.
     """
     global launches
     from floodsr_tpu_torch.ops.kernels import _build
 
+    n = _check_count(n)
     if dist.device.type != "cuda":
         raise ValueError(f"relax_step_cuda needs CUDA tensors; got {dist.device}")
     if dist.ndim != 2:
@@ -114,29 +129,38 @@ def relax_step_cuda(
         raise ValueError(f"grid {h}x{w} exceeds the kernel's launch limits")
     for name, t in (("dist", dist), ("value", value), ("cost", cost)):
         _check_grid(name, t, (h, w), dist.device)
-    dist_out, value_out = torch.empty_like(dist), torch.empty_like(value)
+    fell = torch.empty((), dtype=torch.bool, device=dist.device)
     fn = _lib()
     with torch.cuda.device(dist.device):
-        rc = fn(
-            dist.data_ptr(), value.data_ptr(), cost.data_ptr(),
-            dist_out.data_ptr(), value_out.data_ptr(), h, w,
-            ctypes.c_float(K_ORTH), ctypes.c_float(K_DIAG),
-            _build.current_stream_ptr(dist.device),
-        )
-    _build.check(rc, "relax_step")
-    launches += 1
-    return dist_out, value_out
+        stream = _build.current_stream_ptr(dist.device)
+        for done in range(0, n, MAX_PER_LAUNCH):
+            dist_out, value_out = torch.empty_like(dist), torch.empty_like(value)
+            rc = fn(
+                dist.data_ptr(), value.data_ptr(), cost.data_ptr(),
+                dist_out.data_ptr(), value_out.data_ptr(), fell.data_ptr(), int(done == 0),
+                h, w, min(MAX_PER_LAUNCH, n - done),
+                ctypes.c_float(K_ORTH), ctypes.c_float(K_DIAG), stream,
+            )
+            _build.check(rc, "relax_step")
+            launches += 1
+            dist, value = dist_out, value_out
+    return dist, value, fell
 
 
 def relax_step(
-    dist: torch.Tensor, value: torch.Tensor, cost: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(dist, value, cost)`` → ``(dist', value')``: the kernel on CUDA, the plain
-    version on CPU."""
+    dist: torch.Tensor, value: torch.Tensor, cost: torch.Tensor, n: int = 1
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dist, value, cost)`` → ``(dist', value', fell)`` after ``n`` relaxations:
+    the kernel on CUDA, the plain version ``n`` times on CPU. ``fell`` is a 0-d
+    bool tensor on the grid's device: whether any distance fell."""
+    n = _check_count(n)
     if dist.ndim != 2:
         raise ValueError(f"relax_step expects [H, W]; got {tuple(dist.shape)}")
     if dist.device.type == "cuda":
-        return relax_step_cuda(dist, value, cost)
+        return relax_step_cuda(dist, value, cost, n)
     if dist.device.type != "cpu":
         raise ValueError(f"unsupported device {dist.device}")
-    return relax_step_reference(dist, value, cost)
+    new_dist, new_value = dist, value
+    for _ in range(n):
+        new_dist, new_value = relax_step_reference(new_dist, new_value, cost)
+    return new_dist, new_value, (new_dist < dist).any()

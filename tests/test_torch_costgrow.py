@@ -82,7 +82,7 @@ def _run_steps(dist, value, cost, steps):
     dt, vt, ct = _t(dist), _t(value), _t(cost)
     for _ in range(steps):
         dj, vj = relax_step_pallas(dj, vj, cj, block_rows=8, interpret=True)
-        dt, vt = rs.relax_step(dt, vt, ct)
+        dt, vt, _ = rs.relax_step(dt, vt, ct)
     return np.asarray(dj), np.asarray(vj), dt.numpy(), vt.numpy()
 
 
@@ -150,7 +150,7 @@ def test_relax_step_tie_keeps_the_first_neighbour_in_the_kernels_order():
 def test_relax_step_is_jacobi_and_leaves_its_inputs_alone():
     dist, value, cost = _step_inputs(7, 16, 24, exact_costs=False)
     dt, vt, ct = _t(dist.copy()), _t(value.copy()), _t(cost)
-    new_d, new_v = rs.relax_step(dt, vt, ct)
+    new_d, new_v, _ = rs.relax_step(dt, vt, ct)
     np.testing.assert_array_equal(dt.numpy(), dist)
     np.testing.assert_array_equal(vt.numpy(), value)
     # One step reaches exactly the 8 neighbours of each seed (wall aside).
@@ -165,10 +165,36 @@ def test_relax_step_nan_cost_is_never_taken():
     dist[2, 2], value[2, 2] = 0.0, 3.0
     cost = np.ones((5, 5), np.float32)
     cost[2, 3] = np.nan
-    d, v = rs.relax_step(_t(dist), _t(value), _t(cost))
+    d, v, _ = rs.relax_step(_t(dist), _t(value), _t(cost))
     assert torch.isinf(d[2, 3]) and torch.isnan(v[2, 3])
     assert not torch.isnan(d).any()
     assert d[2, 1] == 1.0 and v[2, 1] == 3.0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 9, 16])
+def test_relax_step_with_a_count_equals_that_many_steps(n):
+    """``relax_step(..., n)`` on the CPU: ``n`` plain steps, and ``fell`` is
+    ``(dist' < dist).any()``, false once the grid is settled."""
+    dist, value, cost = (_t(a) for a in _step_inputs(11, 20, 28, exact_costs=False))
+    want_d, want_v = dist, value
+    for _ in range(n):
+        want_d, want_v = rs.relax_step_reference(want_d, want_v, cost)
+    got_d, got_v, fell = rs.relax_step(dist, value, cost, n)
+    assert torch.equal(got_d, want_d)
+    assert torch.equal(torch.isnan(got_v), torch.isnan(want_v))
+    assert torch.equal(torch.nan_to_num(got_v), torch.nan_to_num(want_v))
+    assert fell.dtype == torch.bool and fell.ndim == 0
+    assert bool(fell) == bool((want_d < dist).any()) is True
+    settled = rs.relax_step(dist, value, cost, 20 * 28)
+    again = rs.relax_step(*settled[:2], cost, n)
+    assert torch.equal(again[0], settled[0]) and not bool(again[2])
+
+
+@pytest.mark.parametrize("n", [0, -1])
+def test_relax_step_raises_on_a_count_below_one(n):
+    dist, value, cost = (_t(a) for a in _step_inputs(1, 8, 8, exact_costs=True))
+    with pytest.raises(ValueError, match="must be >= 1"):
+        rs.relax_step(dist, value, cost, n)
 
 
 def test_relax_step_wrapper_raises_on_cuda_request_without_cuda():

@@ -4,8 +4,8 @@ A CostGrow job through ``TohrService.handle_tohr`` on the CPU: its answer
 carries the request's record as ``scene_timings["trace"]``, with the read, the
 resample, each solve and the write as spans under ``worker.run``, covering
 it; each least-cost solve's span carries its relaxations, host checks and K3
-launches. The CPU launches no kernel, so the tests count a launch per
-relaxation, as the card's wrapper does.
+launches. The CPU launches no kernel, so the tests count a launch per call of
+the wrapper, as the card's does for up to 8 relaxations: one a check block.
 """
 
 from __future__ import annotations
@@ -57,9 +57,13 @@ def _scene(root, seed):
     return root / "dem.tif", root / "wse.tif"
 
 
+#: relaxations between two checks: the workers' default, one launch on the card
+BLOCK = 8
+
+
 @pytest.fixture(scope="module")
 def counted_launches():
-    """Count one K3 launch per relaxation on the CPU."""
+    """Count one K3 launch per call of the wrapper on the CPU."""
     real = cg.relax_step
 
     def step(*args):
@@ -142,8 +146,9 @@ def test_the_counters_are_the_solves_counts(served, version):
     assert relaxations > 0
     assert counters["relaxations"] == relaxations
     assert counters["checks"] == sum(s["checks"] for s in solves.values())
-    # a launch per relaxation: the counter is the launches made inside the solves
-    assert counters["k3_launches"] == relaxations
+    # a launch per check block: the counter is the launches made inside the solves
+    assert counters["k3_launches"] == relaxations // BLOCK
+    assert relaxations % BLOCK == 0
 
 
 def test_each_least_cost_solve_span_carries_its_own_counts(served, counted_launches):
@@ -164,7 +169,8 @@ def test_each_least_cost_solve_span_carries_its_own_counts(served, counted_launc
     for name in LEAST_COST:
         stats, span = solves[name.split(".", 1)[1]], by_name[name]
         assert span.counters == {"relaxations": stats["relaxations"], "checks": stats["checks"],
-                                 "k3_launches": stats["relaxations"]}, name
+                                 "k3_launches": stats["relaxations"] // BLOCK}, name
+        assert stats["k3_launches"] == stats["checks"] - 1 > 0, name
     assert by_name["solve.components"].counters is None
 
 

@@ -431,7 +431,7 @@ def _relax_grid(seed, h, w, device):
     cost[1:4, 1:8] = 1.0  # a flat patch: exact ties between its two seeds
     dist = np.full((h, w), np.inf, np.float32)
     value = np.full((h, w), np.nan, np.float32)
-    cells = [(0, 0), (h - 1, w // 2), (2, min(2, w - 1)), (2, min(6, w - 1))] + [
+    cells = [(0, 0), (h - 1, w // 2), (min(2, h - 1), min(2, w - 1)), (min(2, h - 1), min(6, w - 1))] + [
         (int(r), int(c)) for r, c in zip(rng.integers(0, h, 12), rng.integers(0, w, 12))
     ]
     for k, (r, c) in enumerate(cells):
@@ -453,7 +453,7 @@ def test_relax_step_kernel_equals_plain_version(cuda_device, h, w):
     rs.launches = 0
     got, want = (dist, value), (dist, value)
     for step in range(1, 25):
-        got = rs.relax_step(*got, cost)
+        got = rs.relax_step(*got, cost)[:2]
         want = rs.relax_step_reference(*want, cost)
         torch.cuda.synchronize()
         # No FMA contraction in the kernel: bit for bit after every step.
@@ -465,7 +465,7 @@ def test_relax_step_kernel_equals_plain_version(cuda_device, h, w):
 def test_relax_step_kernel_leaves_its_inputs_alone(cuda_device):
     dist, value, cost = _relax_grid(3, 40, 50, cuda_device)
     keep = dist.clone(), value.clone()
-    got = rs.relax_step(dist, value, cost)
+    got = rs.relax_step(dist, value, cost)[:2]
     torch.cuda.synchronize()
     # Jacobi: new tensors are written, the inputs are not.
     assert got[0].data_ptr() != dist.data_ptr() and got[1].data_ptr() != value.data_ptr()
@@ -497,7 +497,8 @@ def test_mcp_fill_on_the_card_equals_the_cpu_and_the_dijkstra_oracle(cuda_device
     stats = {}
     fill_gpu, dist_gpu = cg.mcp_fill(*(a.to(cuda_device) for a in args), stats=stats)
     fill_cpu, dist_cpu = cg.mcp_fill(*args)
-    assert rs.launches == stats["relaxations"] > 0
+    # one launch of 8 relaxations between two checks
+    assert rs.launches == stats["k3_launches"] == stats["relaxations"] // 8 > 0
     assert torch.equal(dist_gpu.cpu(), dist_cpu)
     np.testing.assert_array_equal(fill_gpu.cpu().numpy(), fill_cpu.numpy())
     want_fill, want_dist = cg.mcp_fill_numpy(seed_values, seeds, cost, domain)
@@ -505,3 +506,96 @@ def test_mcp_fill_on_the_card_equals_the_cpu_and_the_dijkstra_oracle(cuda_device
     np.testing.assert_array_equal(np.isfinite(dist_cpu.numpy()), finite)
     # f32 sums along a path against the oracle's float64.
     np.testing.assert_allclose(dist_cpu.numpy()[finite], want_dist[finite], rtol=1e-4)
+
+
+def _plain_steps(dist, value, cost, n):
+    for _ in range(n):
+        dist, value = rs.relax_step_reference(dist, value, cost)
+    return dist, value
+
+
+# 1x1 to 5x5 and 3x7 are smaller than the kernel's halo of 8; 37x1000 and
+# 513x777 have ragged tiles; 3840x3840 is the benchmarked scene's grid.
+RELAX_SHAPES = [(1, 1), (1, 300), (300, 1), (5, 5), (3, 7), (37, 1000), (513, 777), (3840, 3840)]
+
+
+@pytest.mark.parametrize("h,w", RELAX_SHAPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 9, 16])
+def test_relax_step_kernel_with_a_count_equals_that_many_plain_steps(cuda_device, h, w, n):
+    """One launch per 8 relaxations, bit for bit with ``n`` plain steps, from a
+    fresh state and from one 20 steps on; ``fell`` is ``(dist' < dist).any()``."""
+    dist, value, cost = _relax_grid(7, h, w, cuda_device)
+    for state in ((dist, value), _plain_steps(dist, value, cost, 20)):
+        rs.launches = 0
+        got_d, got_v, fell = rs.relax_step(*state, cost, n)
+        want = _plain_steps(*state, cost, n)
+        torch.cuda.synchronize()
+        assert rs.launches == -(-n // 8)
+        _assert_same_state((got_d, got_v), want)
+        assert fell.dtype == torch.bool and bool(fell) == bool((want[0] < state[0]).any())
+
+
+@pytest.mark.parametrize("h,w", [(5, 5), (37, 1000), (513, 777)])
+def test_relax_step_kernel_with_a_count_on_special_grids(cuda_device, h, w):
+    """No seeds: nothing falls. All costs infinite but the seeds: nothing
+    moves. Exact ties on unit costs keep the first neighbour in the order.
+    A settled grid: nothing falls."""
+    dist, value, cost = _relax_grid(8, h, w, cuda_device)
+    no_seeds = torch.full_like(dist, float("inf")), torch.full_like(value, float("nan"))
+    walls = torch.where(dist == 0, cost, float("inf"))
+    unit = torch.ones_like(cost)
+    settled = _plain_steps(dist, value, unit, h + w)
+    for state, c in ((no_seeds, cost), ((dist, value), walls), ((dist, value), unit), (settled, unit)):
+        for n in (1, 8, 9):
+            got_d, got_v, fell = rs.relax_step(*state, c, n)
+            want = _plain_steps(*state, c, n)
+            torch.cuda.synchronize()
+            _assert_same_state((got_d, got_v), want)
+            assert bool(fell) == bool((want[0] < state[0]).any())
+    assert not bool(rs.relax_step(*no_seeds, cost, 8)[2])
+    assert not bool(rs.relax_step(*settled, unit, 8)[2])
+    assert bool(rs.relax_step(dist, value, unit, 8)[2])
+
+
+def _parent_fill(seed_values, seed_mask, cost_surface, domain_mask, relaxations_per_check=8):
+    """The fill loop before one launch a check block: single relaxations, and
+    a full-grid ``(dist < prev).any()`` every ``relaxations_per_check``."""
+    h, w = seed_values.shape
+    cost = torch.where(domain_mask, cost_surface, float("inf")).contiguous()
+    valid = seed_mask & domain_mask
+    dist = torch.where(valid, 0.0, float("inf")).contiguous()
+    value = torch.where(valid, seed_values, float("nan")).contiguous()
+    prev = torch.full_like(dist, float("inf"))
+    it = checks = 0
+    while True:
+        checks += 1
+        if not (bool((dist < prev).any()) and it < h * w):
+            break
+        prev = dist
+        for _ in range(relaxations_per_check):
+            dist, value, _ = rs.relax_step(dist, value, cost)
+        it += relaxations_per_check
+    filled = torch.where(domain_mask & ~valid & torch.isfinite(dist), value, seed_values)
+    return filled, dist, it, checks
+
+
+@pytest.mark.parametrize("h,w,rpc", [(96, 80, 8), (300, 517, 8), (64, 64, 3), (40, 200, 16)])
+def test_mcp_fill_on_the_card_equals_the_single_step_loop(cuda_device, h, w, rpc):
+    """Outputs, relaxations and checks as the loop of single relaxations and
+    full-grid compares gives them; one launch per 8 relaxations."""
+    rng = np.random.default_rng(h * w + rpc)
+    cost = rng.uniform(1.0, 5.0, (h, w)).astype(np.float32)
+    domain = rng.random((h, w)) > 0.1
+    seeds = rng.random((h, w)) > 0.995
+    seed_values = np.where(seeds, rng.uniform(100, 110, (h, w)), np.nan).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (seed_values, seeds, cost, domain)]
+    want_fill, want_dist, relaxations, checks = _parent_fill(*args, relaxations_per_check=rpc)
+    rs.launches = 0
+    stats = {}
+    fill, dist = cg.mcp_fill(*args, relaxations_per_check=rpc, stats=stats)
+    torch.cuda.synchronize()
+    assert (stats["relaxations"], stats["checks"]) == (relaxations, checks)
+    assert rs.launches == stats["k3_launches"] == (checks - 1) * -(-rpc // 8)
+    assert torch.equal(dist, want_dist)
+    assert torch.equal(torch.isnan(fill), torch.isnan(want_fill))
+    assert torch.equal(torch.nan_to_num(fill), torch.nan_to_num(want_fill))
